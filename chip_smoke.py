@@ -8,20 +8,41 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build: every CUDA kernel of the engine's main path is compiled from
-   ``sutro_tpu_torch/csrc/`` with ``nvcc`` (one process per source, all
-   started together);
+2. build: every CUDA kernel of the engine's main paths is compiled from
+   ``sutro_tpu_torch/csrc/`` (five sources) with ``nvcc`` (one process
+   per source, all started together);
 3. kernels: each kernel is held against its plain PyTorch version on
-   random bfloat16 inputs at Qwen3-8B shapes (NH=32, KVH=8, Dh=128,
-   PS=64, B=64), and timed beside its plain version, a one-call PyTorch
-   yardstick and its bound (the least time the card could take);
-4. serve: ``ContinuousBatcher.run`` over a ``ModelRunner`` for
+   random bfloat16 inputs, and timed beside its plain version, a
+   one-call PyTorch yardstick where one exists and its bound (the least
+   time the card could take): paged decode, the page write and flash
+   prefill at Qwen3-8B shapes (NH=32, KVH=8, Dh=128, PS=64, B=64); the
+   prefix carry and the paged decode with the carry at Qwen3-30B-A3B
+   shapes (B=64, NH=32, KVH=4, 1,024-token shared prefix), the carry's
+   yardstick being the memory-efficient SDPA with its log-sum-exp; the
+   grouped GEMM at Qwen3-30B-A3B expert shapes (E=128, H=2048, F=768),
+   including an lhs with rows past its last group, which must be zero;
+4. serve 1: ``ContinuousBatcher.run`` over a ``ModelRunner`` for
    ``qwen3-8b`` at full width and depth with random weights from a
    seed: 96 requests, greedy, top-p and row-seeded rows. Every row must
-   finish with its full token count, every kernel's launch counter must
-   have moved during this run only, the run must take both the
+   finish with its full token count, every kernel of the path must
+   have launched during this run, the run must take both the
    single-step and the fused-window decode paths, and prefill logits of
-   4 rows must match a cache-free forward through the plain attention.
+   4 rows must match a cache-free forward through the plain attention;
+5. serve 2, after serve 1's runner is freed: a templated batch job on
+   ``qwen3-30b-a3b`` (MoE, 128 experts) at full width and depth with
+   ``prefix_split=True``: 96 requests sharing a 1,024-token template.
+   Every row must finish, the grouped GEMM, the prefix carry, the
+   carry-mode paged decode, the page write and flash prefill must have
+   launched during this run, both decode paths must have run with
+   prefix groups, prefill logits of three sets of 4 rows must match a
+   cache-free forward through the plain attention and the plain grouped
+   GEMM, a decode step of two sets of 8 rows over the shared pages must
+   give the same layer-0 attention output (atol = rtol of the kernel
+   phase) and the same logits with and without the prefix groups, and
+   a fused window with the groups must not wait for the card
+   (``torch.cuda.set_sync_debug_mode``). The engines are
+   ``sutro_tpu_torch.engine.stepprofile.ENGINES``, which the step
+   profile measures.
 
 The second-to-last lines are a JSON ``{"kernels": [...]}`` record and
 the card's name and power limit; the last line is
@@ -38,6 +59,8 @@ import math
 import subprocess
 import sys
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 
@@ -46,6 +69,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 ATOL = RTOL = 2e-2  # bf16 output rounding of an f32-accumulated kernel
+REL_L2 = 5e-2       # logits of a bf16 model against a plain-version forward
+SLEEP_CYCLES = 40_000_000  # ~20 ms of device sleep before a timed run
+ALPHABET = np.array(list("abcdefghijklmnopqrstuvwxyz ,.;:!?"))
 
 
 def nvidia_smi_line() -> str:
@@ -57,7 +83,10 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. The
+    device sleeps while the host queues them, so a call whose host side
+    outlasts its kernels (a small kernel behind a Python wrapper) is
+    still timed on the device, not at the rate the host queues them."""
     import torch
 
     for _ in range(warmup):
@@ -65,6 +94,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
     for _ in range(iters):
         fn()
@@ -132,6 +162,10 @@ def _decode_inputs(rng, torch, dev):
     )
 
 
+def _rec(kernel, **kw) -> dict:
+    return dict(kernel=kernel, name=kernel.name, **kw)
+
+
 def kernel_paged_decode(rng, torch, dev) -> dict:
     import torch.nn.functional as F
     from sutro_tpu_torch.ops import paged_decode as pd
@@ -179,9 +213,9 @@ def kernel_paged_decode(rng, torch, dev) -> dict:
     nbytes = 2 * live * KD * 2 + 2 * B * NH * DH * 2 + B * MP * 4 + B * 4
     flops = 4 * live * NH * DH  # per head: 2 for q.k, 2 for p.v
     bms, by = bound_ms(nbytes, flops)
-    return dict(name="paged_decode", max_abs_err=max(errs.values()), ms=ms,
+    return _rec(pd.KERNEL, max_abs_err=max(errs.values()), ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
-                cases=errs, module=pd)
+                cases=errs)
 
 
 def kernel_kv_write(rng, torch, dev) -> dict:
@@ -249,8 +283,8 @@ def kernel_kv_write(rng, torch, dev) -> dict:
     nbytes = 2 * L * n_tok * KD * 2 * 2 + B * (MP + 2) * 4
     bms, by = bound_ms(nbytes, 0.0)
     del k_pages, v_pages, kf, vf
-    return dict(name="kv_write", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=library_ms, cases=errs, module=kw)
+    return _rec(kw.KERNEL, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms, cases=errs)
 
 
 def kernel_flash_prefill(rng, torch, dev) -> dict:
@@ -287,9 +321,278 @@ def kernel_flash_prefill(rng, torch, dev) -> dict:
     flops = 4 * pairs * NH * DH
     nbytes = 2 * Bc * T * NH * DH * 2 + 2 * Bc * T * KVH * DH * 2
     bms, by = bound_ms(nbytes, flops)
-    return dict(name="flash_prefill", max_abs_err=max(errs.values()), ms=ms,
+    return _rec(fp.KERNEL, max_abs_err=max(errs.values()), ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
-                cases=errs, module=fp)
+                cases=errs)
+
+
+# Qwen3-30B-A3B serve shapes (serve 2): B=64 slots of 24 pages, a
+# 1,024-token (16-page) shared template, top-8 of 128 experts
+QB, QNH, QKVH, QMP = 64, 32, 4, 24
+QNP = 1 + QB * QMP
+QKD = QKVH * DH
+N_PFX = 16
+GE, GH, GF, TOPK = 128, 2048, 768, 8
+
+
+def _prefix_inputs(rng, torch, dev):
+    """Rows 0..63 of a templated batch: members' tables start with the
+    16 shared pages, every 8th row is outside the group (a short
+    untemplated row, so that, as in the serve, no row walks more than
+    ~320 tokens of its own); each member has decoded into its own pages
+    past the template and its suffix."""
+    member = np.ones(QB, bool)
+    member[7::8] = False
+    past = N_PFX * PS + rng.integers(16, 257, QB) + rng.integers(0, 57, QB)
+    past[~member] = rng.integers(16, 321, int((~member).sum()))
+    table = np.zeros((QB, QMP), np.int32)
+    perm = rng.permutation(np.arange(1 + N_PFX, QNP))
+    nxt = 0
+    for b in range(QB):
+        head = N_PFX if member[b] else 0
+        if head:
+            table[b, :head] = np.arange(1, 1 + N_PFX)
+        n = -(-int(past[b]) // PS) - head
+        table[b, head : head + n] = perm[nxt : nxt + n]
+        nxt += n
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    win_len = 4
+    return dict(
+        q=torch.randn((QB, QNH, DH), generator=g, **bf),
+        k_pages=torch.randn((QNP, PS, QKD), generator=g, **bf),
+        v_pages=torch.randn((QNP, PS, QKD), generator=g, **bf),
+        page_table=i32(table), past_len=i32(past),
+        k_cur=torch.randn((QB, QKVH, DH), generator=g, **bf),
+        v_cur=torch.randn((QB, QKVH, DH), generator=g, **bf),
+        win_k=torch.randn((QB, 8, QKD), generator=g, **bf),
+        win_v=torch.randn((QB, 8, QKD), generator=g, **bf),
+        win_len=win_len,
+        pages=i32(np.arange(1, 1 + N_PFX)),
+        pfx_len=i32(np.where(member, N_PFX * PS, 0)),
+        pfx_cnt=i32(np.where(member, N_PFX, 0)),
+        q_pos=i32(past + win_len),
+        member=member, past=past,
+    )
+
+
+def kernel_prefix_split(rng, torch, dev) -> list:
+    """The prefix carry, and the paged decode started from it, against
+    their plain versions: the carry kernel plus the decode kernel with
+    pfx_cnt must equal the plain decode over the full table."""
+    from sutro_tpu_torch.ops import paged_decode as pd
+    from sutro_tpu_torch.ops import prefix_carry as pc
+
+    x = _prefix_inputs(rng, torch, dev)
+    pool = (x["q"], x["k_pages"], x["v_pages"])
+    padded = torch.cat([x["pages"], torch.zeros_like(x["pages"])])  # page-0 padding
+    carry_errs, dec_errs = {}, {}
+    carries = {}
+    for name, pages, window in (("window0", x["pages"], 0),
+                                ("window600_cuts_prefix", x["pages"], 600),
+                                ("padded_pages", padded, 0)):
+        args = (*pool, pages, x["pfx_len"], x["q_pos"], window)
+        got = pc.prefix_attention_carry(*args)
+        want = pc.prefix_attention_carry_plain(*args)
+        torch.cuda.synchronize()
+        live = want[1] > 0   # m matters only where a key was in range
+        carry_errs[name] = max(check_close(f"prefix_carry[{name}].m", got[0][live],
+                                           want[0][live]),
+                               check_close(f"prefix_carry[{name}].l", got[1], want[1]),
+                               check_close(f"prefix_carry[{name}].acc", got[2], want[2]))
+        if (got[1][~torch.as_tensor(x["member"], device=dev)] != 0).any():
+            raise AssertionError(f"prefix_carry[{name}]: a row outside the group got a carry")
+        carries[name] = (got, window)
+    base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
+            x["k_cur"], x["v_cur"])
+    win = dict(win_k=x["win_k"], win_v=x["win_v"], win_len=x["win_len"])
+    for name in ("window0", "window600_cuts_prefix"):
+        (m0, l0, acc0), window = carries[name]
+        got = pd.paged_decode_attention(*base, window, **win, pfx_cnt=x["pfx_cnt"],
+                                        m0=m0, l0=l0, acc0=acc0)
+        want = pd.paged_decode_plain(*base, window, **win)
+        torch.cuda.synchronize()
+        dec_errs[name] = check_close(f"paged_decode_carry[{name}]", got, want)
+
+    (m0, l0, acc0), _ = carries["window0"]
+    carry_args = (*pool, x["pages"], x["pfx_len"], x["q_pos"], 0)
+    dec_kw = dict(**win, pfx_cnt=x["pfx_cnt"], m0=m0, l0=l0, acc0=acc0)
+    ms_c = time_ms(lambda: pc.prefix_attention_carry(*carry_args))
+    plain_c = time_ms(lambda: pc.prefix_attention_carry_plain(*carry_args), iters=5)
+    ms_d = time_ms(lambda: pd.paged_decode_attention(*base, 0, **dec_kw))
+    plain_d = time_ms(lambda: pd.paged_decode_plain(*base, 0, **dec_kw), iters=5)
+
+    def split_pair():
+        m, l_, a = pc.prefix_attention_carry(*carry_args)
+        pd.paged_decode_attention(*base, 0, **win, pfx_cnt=x["pfx_cnt"], m0=m, l0=l_,
+                                  acc0=a)
+
+    pair_ms = time_ms(split_pair)
+    full_ms = time_ms(lambda: pd.paged_decode_attention(*base, 0, **win))
+    library, lib_err = _library_carry(torch, x, pc.prefix_attention_carry_plain(*carry_args))
+    carry_errs["library_sdpa_vs_plain"] = lib_err
+    library_ms = time_ms(library)
+    # bounds: the carry reads the shared K/V rows once and q, writes
+    # m/l/acc; 4 flops per (query head, key, Dh) (q.k and p.v)
+    member = x["member"]
+    n_member = int(member.sum())
+    pfx_tokens = N_PFX * PS
+    nbytes = (QB * QNH * DH * 2 + 2 * pfx_tokens * QKD * 2 + N_PFX * 4 + 2 * QB * 4
+              + QB * QNH * (2 * 4 + DH * 4))
+    flops = 4 * n_member * pfx_tokens * QNH * DH
+    bc, byc = bound_ms(nbytes, flops)
+    # the decode with the carry: each row's own K/V rows (past the
+    # prefix), the window slots and current token, q and the carry in,
+    # out back
+    own = int(np.where(member, x["past"] - pfx_tokens, x["past"]).sum())
+    live = own + QB * (x["win_len"] + 1)
+    nbytes = (2 * live * QKD * 2 + 2 * QB * QNH * DH * 2 + QB * QNH * (2 * 4 + DH * 4)
+              + QB * QMP * 4 + 2 * QB * 4)
+    bd, byd = bound_ms(nbytes, 4 * live * QNH * DH)
+    return [
+        _rec(pc.KERNEL, max_abs_err=max(v for k, v in carry_errs.items()
+                                        if not k.startswith("library")),
+             ms=ms_c, plain_ms=plain_c, bound_ms=bc, bound_by=byc, library_ms=library_ms,
+             cases=carry_errs,
+             library="aten._scaled_dot_product_efficient_attention with its log-sum-exp"),
+        _rec(pd.CARRY, max_abs_err=max(dec_errs.values()), ms=ms_d, plain_ms=plain_d,
+             bound_ms=bd, bound_by=byd, library_ms=None, cases=dec_errs,
+             split_pair_ms=pair_ms, full_table_ms=full_ms),
+    ]
+
+
+def _library_carry(torch, x, want):
+    """One PyTorch call for the prefix carry at window 0: the
+    memory-efficient SDPA with its log-sum-exp over the template's K/V
+    gathered into [1, KVH, S, Dh] (the gather is not timed), each KV
+    head's B x G queries as its rows and the length mask as an additive
+    bias. (lse, 1, out) is the same carry as (m, l, acc / l) up to the
+    free choice of m. Held against the plain carry ``want`` on the
+    member rows; returns (callable, max |err|)."""
+    q = x["q"]
+    G = QNH // QKVH
+    S = N_PFX * PS
+    idx = x["pages"].long()
+
+    def heads_first(pool):   # [1, KVH, S, Dh]
+        return pool[idx].reshape(S, QKVH, DH).transpose(0, 1)[None].contiguous()
+
+    kg, vg = heads_first(x["k_pages"]), heads_first(x["v_pages"])
+    qs = q.reshape(QB, QKVH, G, DH).transpose(0, 1).reshape(1, QKVH, QB * G, DH).contiguous()
+    ok = torch.arange(S, device=q.device)[None] < x["pfx_len"].long()[:, None]   # [B, S]
+    bias = torch.zeros(ok.shape, dtype=torch.bfloat16, device=q.device).masked_fill(~ok, -1e30)
+    bias = bias.repeat_interleave(G, 0)[None, None].expand(1, QKVH, QB * G, S).contiguous()
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(qs, kg, vg, bias, True)
+
+    out, lse = library()[:2]
+    torch.cuda.synchronize()
+    out = out[0].reshape(QKVH, QB, G, DH).transpose(0, 1).reshape(QB, QNH, DH)
+    lse = lse[0, :, : QB * G].reshape(QKVH, QB, G).transpose(0, 1).reshape(QB, QNH)
+    m, l_, acc = want
+    rows = torch.as_tensor(x["member"], device=q.device)
+    err = max(check_close("prefix_carry library: out", out[rows], (acc / l_[..., None])[rows]),
+              check_close("prefix_carry library: lse", lse[rows], (m + l_.log())[rows]))
+    return library, err
+
+
+def _library_grouped_mm(torch, lhs, rhs, sizes):
+    """One PyTorch call for the grouped GEMM: ``torch._grouped_mm``
+    where this PyTorch has it for bf16 on the card (checked against the
+    plain loop), else ``torch.bmm`` over groups padded to the largest
+    (the padding copy is not timed). Returns (callable, its name)."""
+    from sutro_tpu_torch.ops.grouped_matmul import grouped_matmul_plain
+
+    gs = torch.as_tensor(np.asarray(sizes, np.int32), device=lhs.device)
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        want = grouped_matmul_plain(lhs, rhs, gs).float()
+        col_major = rhs.transpose(-2, -1).contiguous().transpose(-2, -1)
+        for b in (rhs, col_major):
+            try:
+                out = torch._grouped_mm(lhs, b, offs=offs, out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+            except (RuntimeError, TypeError, ValueError):
+                continue
+            if torch.allclose(out.float(), want, atol=ATOL, rtol=RTOL):
+                return (lambda: torch._grouped_mm(lhs, b, offs=offs,
+                                                  out_dtype=torch.bfloat16),
+                        "torch._grouped_mm")
+    E = rhs.shape[0]
+    width = max(max(sizes), 1)
+    pad = torch.zeros((E, width, lhs.shape[1]), dtype=lhs.dtype, device=lhs.device)
+    start = 0
+    for e, n in enumerate(sizes):
+        pad[e, :n] = lhs[start : start + n]
+        start += n
+    return (lambda: torch.bmm(pad, rhs)), "torch.bmm over groups padded to the largest"
+
+
+def kernel_grouped_matmul(rng, torch, dev) -> dict:
+    """Expert GEMMs at Qwen3-30B-A3B shapes: a decode step's 512
+    (token, expert) rows routed by a random router, a 4,096-token
+    prefill's 32,768, one empty group and one hot expert, for the
+    gate/up (H -> F) and the down (F -> H) projections."""
+    from sutro_tpu_torch.ops import grouped_matmul as gm
+
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    router = torch.randn((GH, GE), generator=g, device=dev) * GH ** -0.5
+
+    def routed(n_tokens, empty=None):
+        logits = torch.randn((n_tokens, GH), generator=g, device=dev) @ router
+        if empty is not None:
+            logits[:, empty] = float("-inf")
+        idx = torch.topk(logits, TOPK, dim=-1).indices.reshape(-1)
+        return torch.bincount(idx, minlength=GE).tolist()
+
+    w_up = torch.randn((GE, GH, GF), generator=g, **bf) * GH ** -0.5
+    w_down = torch.randn((GE, GF, GH), generator=g, **bf) * GF ** -0.5
+    hot = [0] * GE
+    hot[GE // 3] = 512
+    cases = {   # name: (group sizes, weights, lhs rows past the last group)
+        "decode_M512_gate": (routed(64), w_up, 0),
+        "decode_M512_down": (routed(64), w_down, 0),
+        "prefill_M32768_gate": (routed(4096), w_up, 0),
+        "prefill_M32768_down": (routed(4096), w_down, 0),
+        "empty_group_M512": (routed(64, empty=5), w_up, 0),
+        "hot_expert_M512": (hot, w_up, 0),
+        "rows_past_groups_M512": (routed(40), w_down, 192),
+    }
+    if cases["empty_group_M512"][0][5] != 0:
+        raise AssertionError("grouped_matmul: the empty-group case has no empty group")
+    errs, timed = {}, {}
+    for name, (sizes, rhs, pad) in cases.items():
+        lhs = torch.randn((sum(sizes) + pad, rhs.shape[1]), generator=g, **bf)
+        gs = torch.as_tensor(np.asarray(sizes, np.int32), device=dev)
+        got = gm.grouped_matmul(lhs, rhs, gs)
+        want = gm.grouped_matmul_plain(lhs, rhs, gs)
+        torch.cuda.synchronize()
+        errs[name] = check_close(f"grouped_matmul[{name}]", got, want)
+        if pad and got[sum(sizes):].any():
+            raise AssertionError(f"grouped_matmul[{name}]: rows past the groups are not zero")
+        if name.startswith(("decode", "prefill")):
+            M, K = lhs.shape
+            N = rhs.shape[2]
+            used = sum(1 for n in sizes if n)
+            nbytes = M * K * 2 + used * K * N * 2 + M * N * 2 + GE * 4
+            bms, by = bound_ms(nbytes, 2 * M * K * N)
+            lib, lib_name = _library_grouped_mm(torch, lhs, rhs, sizes)
+            timed[name] = dict(
+                ms=time_ms(lambda: gm.grouped_matmul(lhs, rhs, gs)),
+                plain_ms=time_ms(lambda: gm.grouped_matmul_plain(lhs, rhs, gs), iters=3,
+                                 warmup=1),
+                library_ms=time_ms(lib), library=lib_name, bound_ms=bms, bound_by=by,
+                experts_used=used,
+            )
+        del lhs, got, want
+    main = timed["decode_M512_gate"]   # a decode step's gate/up call
+    return _rec(gm.KERNEL, max_abs_err=max(errs.values()), ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"], cases=errs,
+                library=main["library"], timed_cases=timed)
 
 
 # ---------------------------------------------------------------------------
@@ -298,53 +601,28 @@ def kernel_flash_prefill(rng, torch, dev) -> dict:
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Route the no-past attention through the plain version (for the
-    cache-free reference forward)."""
-    from sutro_tpu_torch.ops import attention, flash_prefill
+def plain_kernels():
+    """Route the no-past attention and the expert GEMMs through their
+    plain versions (for the cache-free reference forward)."""
+    from sutro_tpu_torch.ops import attention, flash_prefill, grouped_matmul, moe
 
-    saved = attention.flash_prefill
+    saved = attention.flash_prefill, moe.grouped_matmul
     attention.flash_prefill = flash_prefill.flash_prefill_plain
+    moe.grouped_matmul = grouped_matmul.grouped_matmul_plain
     try:
         yield
     finally:
-        attention.flash_prefill = saved
+        attention.flash_prefill, moe.grouped_matmul = saved
 
 
-def serve(torch, modules, dev, n_requests: int = 96, seed: int = 0) -> dict:
-    from sutro_tpu_torch.engine.config import EngineConfig
+def check_prefill_logits(torch, runner, rows, label: str) -> float:
+    """Prefill logits of ``rows`` (batched, through the kernels, into
+    pages 1.. of the pool) against a cache-free forward of each row
+    through the plain versions. Returns the relative L2 error."""
     from sutro_tpu_torch.engine.kvcache import make_page_table, pages_needed
-    from sutro_tpu_torch.engine.runner import ModelRunner
-    from sutro_tpu_torch.engine.scheduler import ContinuousBatcher, GenRequest
-    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer
     from sutro_tpu_torch.models import transformer
-    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
 
-    mcfg = MODEL_CONFIGS["qwen3-8b"]
-    ecfg = EngineConfig(kv_page_size=64, max_pages_per_seq=32, decode_batch_size=64,
-                        max_model_len=2048, decode_multi_step=8, seed=seed)
-    t0 = time.monotonic()
-    runner = ModelRunner(mcfg, ecfg, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
-    info = runner.device_info()
-    print(f"serve: {mcfg.name} L={mcfg.num_layers} H={mcfg.hidden_size} "
-          f"params={info['n_params']:,} ({info['param_bytes'] / 1e9:.2f} GB) "
-          f"kv_pool={2 * runner.cache.k_pages.numel() * 2 / 1e9:.2f} GB "
-          f"init={init_s:.1f}s", flush=True)
-
-    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
-    rng = np.random.default_rng(seed)
-    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz ,.;:!?"))
-    prompts = [
-        np.asarray(tok.encode("".join(rng.choice(alphabet, int(n)))), np.int32)
-        for n in rng.integers(16, 501, n_requests)
-    ]
-
-    # prefill logits of 4 rows vs a cache-free forward through the plain
-    # attention (pages 1.. of the pool; the batcher's allocator reuses
-    # them afterwards)
-    rows = [prompts[i] for i in range(4)]
+    ecfg, mcfg = runner.ecfg, runner.mcfg
     pages, nxt = [], 1
     for r in rows:
         n = pages_needed(len(r), ecfg.kv_page_size)
@@ -352,7 +630,7 @@ def serve(torch, modules, dev, n_requests: int = 96, seed: int = 0) -> dict:
         nxt += n
     got = runner.prefill_batch(rows, make_page_table(pages, ecfg.max_pages_per_seq))
     ref = []
-    with plain_attention(), torch.no_grad():
+    with plain_kernels(), torch.no_grad():
         for r in rows:
             ids = torch.as_tensor(r[None], device=runner.device)
             pos = torch.arange(len(r), device=runner.device)[None]
@@ -365,17 +643,71 @@ def serve(torch, modules, dev, n_requests: int = 96, seed: int = 0) -> dict:
     ref = np.stack(ref)
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-    print(f"serve: prefill logits vs cache-free plain forward: rel_l2={rel:.3e} "
-          f"argmax_agree={agree}/4 max_abs={float(np.abs(got - ref).max()):.3e}", flush=True)
-    # bf16 weights/activations through 36 layers: a relative L2 error of
-    # a few 1e-3 is rounding; a wrong mask or page would be O(1)
-    if not (np.isfinite(got).all() and rel < 5e-2):
-        raise AssertionError(f"prefill logits disagree with the plain forward: rel_l2={rel}")
+    print(f"{label}: prefill logits vs cache-free plain forward: rel_l2={rel:.3e} "
+          f"argmax_agree={agree}/{len(rows)} max_abs={float(np.abs(got - ref).max()):.3e}",
+          flush=True)
+    # bf16 weights/activations through the whole depth: a relative L2
+    # error of a few 1e-3 is rounding; a wrong mask, page or expert
+    # would be O(1)
+    if not (np.isfinite(got).all() and rel < REL_L2):
+        raise AssertionError(f"{label}: prefill logits disagree with the plain forward: "
+                             f"rel_l2={rel}")
+    return rel
 
-    # the seeded rows get the three shortest prompts: admission is
-    # shortest-first, so they ride the first wave of slots, which then
-    # decodes one step at a time (a seeded row needs its own draw), and
-    # the later waves take the pipelined fused windows
+
+def count_decode_calls(runner, calls: dict) -> None:
+    """Count the runner's two decode entry points, and those calls that
+    carried shared-prefix groups."""
+    for name in ("decode_step", "decode_multi_async"):
+        calls.setdefault(name, 0)
+        calls.setdefault(name + "_with_groups", 0)
+
+        def counted(*a, _fn=getattr(runner, name), _name=name, **k):
+            calls[_name] += 1
+            calls[_name + "_with_groups"] += bool(k.get("pfx"))
+            return _fn(*a, **k)
+        setattr(runner, name, counted)
+
+
+def run_batch(torch, runner, requests, kernels, seed: int):
+    """``ContinuousBatcher.run`` with every launch counter at 0 just
+    before it; returns (results, launches during the run, timer, wall)."""
+    from sutro_tpu_torch.engine.scheduler import ContinuousBatcher
+
+    for k in kernels:
+        k.launches = 0
+    results = {}
+    batcher = ContinuousBatcher(runner, stop_ids=[], seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state = batcher.run(requests, on_result=lambda r: results.__setitem__(r.row_id, r))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k.name: k.launches for k in kernels}
+    if state != "completed" or len(results) != len(requests):
+        raise AssertionError(f"run ended {state!r} with {len(results)}/{len(requests)} rows")
+    for r in results.values():
+        if r.error or r.finish_reason != "length" or len(r.token_ids) != 64:
+            raise AssertionError(
+                f"row {r.row_id}: {r.finish_reason!r} {len(r.token_ids)} tokens {r.error!r}")
+        if not all(0 <= t < runner.mcfg.vocab_size for t in r.token_ids):
+            raise AssertionError(f"row {r.row_id}: token id out of range")
+        if not math.isfinite(r.cumulative_logprob):
+            raise AssertionError(f"row {r.row_id}: non-finite logprob")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    return results, launches, batcher.timer.summary(), wall
+
+
+def mixed_requests(prompts, n_new: int = 64):
+    """3 in 4 greedy, 1 in 4 top-p; the three row-seeded rows get the
+    three shortest prompts: admission is shortest-first, so they ride
+    the first wave of slots, which then decodes one step at a time (a
+    seeded row needs its own draw), and the later waves take the
+    pipelined fused windows."""
+    from sutro_tpu_torch.engine.scheduler import GenRequest
+
     seeded = set(np.argsort([len(p) for p in prompts], kind="stable")[:3].tolist())
     requests = []
     for i, p in enumerate(prompts):
@@ -385,102 +717,276 @@ def serve(torch, modules, dev, n_requests: int = 96, seed: int = 0) -> dict:
             kw = dict(temperature=0.8, top_p=0.9)          # nucleus rows
         else:
             kw = dict(temperature=0.0)                     # greedy rows
-        requests.append(GenRequest(row_id=i, prompt_ids=p, max_new_tokens=64, **kw))
+        requests.append(GenRequest(row_id=i, prompt_ids=p, max_new_tokens=n_new, **kw))
+    return requests
 
-    # count the runner's two decode entry points, to show the run took both
-    calls = {"decode_step": 0, "decode_multi_async": 0}
-    for name in calls:
-        def counted(*a, _fn=getattr(runner, name), _name=name, **k):
-            calls[_name] += 1
-            return _fn(*a, **k)
-        setattr(runner, name, counted)
 
-    for m in modules:
-        m.KERNEL.launches = 0
-    results = {}
-    batcher = ContinuousBatcher(runner, stop_ids=[], seed=seed)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    state = batcher.run(requests, on_result=lambda r: results.__setitem__(r.row_id, r))
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {m.KERNEL.name: m.KERNEL.launches for m in modules}
-    if state != "completed" or len(results) != n_requests:
-        raise AssertionError(f"run ended {state!r} with {len(results)}/{n_requests} rows")
-    for r in results.values():
-        if r.error or r.finish_reason != "length" or len(r.token_ids) != 64:
-            raise AssertionError(
-                f"row {r.row_id}: {r.finish_reason!r} {len(r.token_ids)} tokens {r.error!r}")
-        if not all(0 <= t < mcfg.vocab_size for t in r.token_ids):
-            raise AssertionError(f"row {r.row_id}: token id out of range")
-        if not math.isfinite(r.cumulative_logprob):
-            raise AssertionError(f"row {r.row_id}: non-finite logprob")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    if min(calls.values()) <= 0:
-        raise AssertionError(f"the batch did not take both decode paths: {calls}")
-    summary = batcher.timer.summary()
+def serve_summary(prompts, n_new, results, launches, calls, timer, wall, rel) -> dict:
     n_prompt = int(sum(len(p) for p in prompts))
-    n_gen = 64 * n_requests
-    pre_s = summary.get("prefill", {}).get("total_s", float("nan"))
-    dec_s = summary.get("decode", {}).get("total_s", float("nan"))
-    out = dict(rows=len(results), prompt_tokens=n_prompt, generated_tokens=n_gen,
-               wall_s=wall, prefill_s=pre_s, decode_s=dec_s, decode_calls=calls,
-               prefill_tok_s=n_prompt / pre_s, decode_tok_s=n_gen / dec_s,
-               launches=launches, logits_rel_l2=rel, timer=summary)
+    n_gen = n_new * len(results)
+    pre_s = timer.get("prefill", {}).get("total_s", float("nan"))
+    dec_s = timer.get("decode", {}).get("total_s", float("nan"))
+    return dict(rows=len(results), prompt_tokens=n_prompt, generated_tokens=n_gen,
+                wall_s=wall, prefill_s=pre_s, decode_s=dec_s, decode_calls=calls,
+                prefill_tok_s=n_prompt / pre_s, decode_tok_s=n_gen / dec_s,
+                launches=launches, logits_rel_l2=rel, timer=timer)
+
+
+def serve(torch, kernels, dev, n_requests: int = 96, seed: int = 0) -> dict:
+    """Serve 1: qwen3-8b, prompts of 16-500 tokens."""
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.runner import ModelRunner
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    mcfg = MODEL_CONFIGS["qwen3-8b"]
+    ecfg = EngineConfig(**ENGINES[mcfg.name][0], seed=seed)
+    t0 = time.monotonic()
+    runner = ModelRunner(mcfg, ecfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    info = runner.device_info()
+    print(f"serve: {mcfg.name} L={mcfg.num_layers} H={mcfg.hidden_size} "
+          f"params={info['n_params']:,} ({info['param_bytes'] / 1e9:.2f} GB) "
+          f"kv_pool={2 * runner.cache.k_pages.numel() * 2 / 1e9:.2f} GB "
+          f"init={init_s:.1f}s", flush=True)
+
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed)
+    prompts = [
+        np.asarray(tok.encode("".join(rng.choice(ALPHABET, int(n)))), np.int32)
+        for n in rng.integers(16, 501, n_requests)
+    ]
+    rel = check_prefill_logits(torch, runner, prompts[:4], "serve")
+    calls = {}
+    count_decode_calls(runner, calls)
+    results, launches, timer, wall = run_batch(
+        torch, runner, mixed_requests(prompts), kernels, seed)
+    if min(calls["decode_step"], calls["decode_multi_async"]) <= 0:
+        raise AssertionError(f"the batch did not take both decode paths: {calls}")
+    out = serve_summary(prompts, 64, results, launches, calls, timer, wall, rel)
     print("serve: " + json.dumps(out), flush=True)
     return out
 
 
+def check_split_decode(torch, runner, template, rows, rng, label: str):
+    """The template in pages 1.., ``rows``' suffixes after it; then one
+    decode step over those pages with and without the prefix groups.
+    Held two ways: layer 0's attention output on the same pool (one
+    layer of rounding: the kernel phase's atol = rtol), and the logits
+    after the whole depth (rel-L2 under REL_L2). Returns (logits rel-L2,
+    layer-0 max |err|, tables)."""
+    from sutro_tpu_torch.models import transformer
+    from sutro_tpu_torch.ops import attention
+
+    dev, mcfg, ecfg = runner.device, runner.mcfg, runner.ecfg
+    PSz, n_rows = ecfg.kv_page_size, len(rows)
+    n_pfx = len(template) // PSz
+    head = np.zeros((ecfg.max_pages_per_seq,), np.int32)
+    head[:n_pfx] = np.arange(1, 1 + n_pfx)
+    runner.prefill(template, head)
+    tables, nxt = [], 1 + n_pfx
+    for p in rows:
+        t = head.copy()
+        n = -(-(len(p) + 1) // PSz) - n_pfx
+        t[n_pfx : n_pfx + n] = np.arange(nxt, nxt + n)
+        nxt += n
+        tables.append(t)
+    tables = np.stack(tables)
+    runner.prefill_batch_at([p[len(template):] for p in rows], tables,
+                            [len(template)] * n_rows)
+    past = torch.as_tensor([len(p) for p in rows], dtype=torch.int32, device=dev)
+    table_t = torch.as_tensor(tables, device=dev)
+    ones = torch.ones((n_rows,), dtype=torch.int32, device=dev)
+    groups = ((torch.arange(1, 1 + n_pfx, dtype=torch.int32, device=dev),
+               torch.full((n_rows,), len(template), dtype=torch.int32, device=dev)),)
+
+    # layer 0's attention: random current-token q/k/v over the real pool
+    NHq, KVHq, Dh = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    bf = dict(dtype=torch.bfloat16, device=dev, generator=g)
+    q = torch.randn((n_rows, 1, NHq, Dh), **bf)
+    k, v = (torch.randn((n_rows, 1, KVHq, Dh), **bf) for _ in range(2))
+    akw = dict(positions=past[:, None], valid_len=ones, past_len=past, page_table=table_t,
+               past_k_pages=runner.cache.k_pages[0], past_v_pages=runner.cache.v_pages[0])
+    attn_err = check_close(f"{label}: layer-0 attention with vs without prefix groups",
+                           attention.chunk_attention(q, k, v, pfx_groups=groups, **akw),
+                           attention.chunk_attention(q, k, v, **akw))
+
+    ids = torch.as_tensor(rng.integers(3, 256, (n_rows, 1)), dtype=torch.int32, device=dev)
+    kw = dict(paged_past=(runner.cache.k_pages, runner.cache.v_pages, table_t), past_len=past)
+    with torch.no_grad():
+        split, _, _ = transformer.forward(mcfg, runner.params, ids, past[:, None], ones,
+                                          pfx_groups=groups, **kw)
+        full, _, _ = transformer.forward(mcfg, runner.params, ids, past[:, None], ones, **kw)
+    split, full = split[:, 0].float().cpu().numpy(), full[:, 0].float().cpu().numpy()
+    rel = float(np.linalg.norm(split - full) / np.linalg.norm(full))
+    print(f"{label}: decode with vs without prefix groups: layer-0 attention "
+          f"max_abs={attn_err:.3e}; logits rel_l2={rel:.3e} "
+          f"argmax_agree={int((split.argmax(-1) == full.argmax(-1)).sum())}/{n_rows}",
+          flush=True)
+    if not (np.isfinite(split).all() and rel < REL_L2):
+        raise AssertionError(f"{label}: split decode disagrees with the full table: {rel}")
+    return rel, attn_err, tables
+
+
+def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0) -> dict:
+    """Serve 2: a templated classify/extract-style job on qwen3-30b-a3b
+    with prefix_split on. Every request is one shared 1,024-token
+    template (16 pages) and a distinct 16-256-token suffix."""
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.runner import ModelRunner
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    mcfg = MODEL_CONFIGS["qwen3-30b-a3b"]
+    fields, n_tpl = ENGINES[mcfg.name]
+    ecfg = EngineConfig(**fields, seed=seed)
+    t0 = time.monotonic()
+    runner = ModelRunner(mcfg, ecfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    info = runner.device_info()
+    print(f"serve2: {mcfg.name} L={mcfg.num_layers} H={mcfg.hidden_size} "
+          f"E={mcfg.moe_experts} top_k={mcfg.moe_top_k} params={info['n_params']:,} "
+          f"({info['param_bytes'] / 1e9:.2f} GB) "
+          f"kv_pool={2 * runner.cache.k_pages.numel() * 2 / 1e9:.2f} GB "
+          f"init={init_s:.1f}s", flush=True)
+
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 1)
+    text = lambda n: "".join(rng.choice(ALPHABET, int(n)))  # noqa: E731
+    template = np.asarray(tok.encode(text(n_tpl)), np.int32)
+    prompts = [
+        np.concatenate([template, np.asarray(tok.encode(text(n)), np.int32)])
+        for n in rng.integers(16, 257, n_requests)
+    ]
+    # three sets of 4 rows for the prefill logits, two of 8 for the
+    # split decode: one reading each would say little about how close
+    # to its limit a check runs
+    rels = [check_prefill_logits(torch, runner, prompts[i : i + 4], f"serve2 rows {i}-{i + 3}")
+            for i in (0, 4, 8)]
+    split_checks = [check_split_decode(torch, runner, template, prompts[i : i + 8], rng,
+                                       f"serve2 rows {i}-{i + 7}") for i in (0, 8)]
+    tables = split_checks[-1][2]
+
+    # a fused window with the prefix groups chains on the device: no
+    # operation inside the call may wait for the card (the grouped GEMM
+    # reads its group sizes on the device)
+    n_rows = len(tables)
+    pfx = ((np.arange(1, 1 + n_tpl // ecfg.kv_page_size, dtype=np.int32),
+            np.full(n_rows, len(template), np.int32)),)
+    window_args = (
+        rng.integers(3, 256, n_rows).astype(np.int32),
+        np.array([len(p) for p in prompts[8 : 8 + n_rows]], np.int32), tables, 7,
+        np.array([0.0] * 4 + [0.8] * 4, np.float32),
+        np.array([1.0] * 4 + [0.9] * 4, np.float32), ecfg.decode_multi_step,
+    )
+    runner.decode_multi_async(*window_args, pfx=pfx)  # warm-up: allocator, pinned buffers
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner.decode_multi_async(*window_args, pfx=pfx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    waits = sorted({str(w.message).splitlines()[0] for w in caught
+                    if "called a synchronizing CUDA operation" in str(w.message)})
+    print(f"serve2: host waits inside a fused window with prefix groups: {len(waits)} "
+          f"{waits}", flush=True)
+    if waits:
+        raise AssertionError(f"a fused window with prefix groups waited for the card: {waits}")
+
+    calls = {}
+    count_decode_calls(runner, calls)
+    results, launches, timer, wall = run_batch(
+        torch, runner, mixed_requests(prompts), kernels, seed)
+    if min(calls["decode_step_with_groups"], calls["decode_multi_async_with_groups"]) <= 0:
+        raise AssertionError(f"both decode paths must run with prefix groups: {calls}")
+    out = serve_summary(prompts, 64, results, launches, calls, timer, wall, max(rels))
+    out["logits_rel_l2_by_rows"] = rels
+    out["split_vs_full_rel_l2"] = [c[0] for c in split_checks]
+    out["split_vs_full_layer0_attn_max_abs"] = [c[1] for c in split_checks]
+    print("serve2: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from sutro_tpu_torch.engine.runner import set_matmul_precision
-    from sutro_tpu_torch.ops import cuda_build, flash_prefill, kv_write, paged_decode
+    from sutro_tpu_torch.ops import (
+        cuda_build, flash_prefill, grouped_matmul, kv_write, paged_decode, prefix_carry,
+    )
 
     set_matmul_precision()
     card = nvidia_smi_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
-    modules = [paged_decode, kv_write, flash_prefill]
+    dense_path = [paged_decode.KERNEL, kv_write.KERNEL, flash_prefill.KERNEL]
+    templated_path = [grouped_matmul.KERNEL, prefix_carry.KERNEL, paged_decode.CARRY,
+                      kv_write.KERNEL, flash_prefill.KERNEL]
 
     t0 = time.monotonic()
-    logs = cuda_build.build([m.KERNEL for m in modules])
+    logs = cuda_build.build(dense_path + templated_path)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build[{name}]: {line.strip()}", flush=True)
-    print(f"build: {len(logs)} kernels compiled in {time.monotonic() - t0:.1f}s", flush=True)
+    print(f"build: {len(logs)} sources compiled in {time.monotonic() - t0:.1f}s", flush=True)
 
     records = []
     rng = np.random.default_rng(1234)
-    for fn in (kernel_paged_decode, kernel_kv_write, kernel_flash_prefill):
-        rec = fn(rng, torch, dev)
+    for fn in (kernel_paged_decode, kernel_kv_write, kernel_flash_prefill,
+               kernel_prefix_split, kernel_grouped_matmul):
+        recs = fn(rng, torch, dev)
         torch.cuda.empty_cache()
-        print(f"kernel[{rec['name']}]: ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-              f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-              f"({rec['bound_by']}) max_abs_err={rec['max_abs_err']:.3e} "
-              f"cases={json.dumps(rec['cases'])}", flush=True)
-        records.append(rec)
+        for rec in recs if isinstance(recs, list) else [recs]:
+            lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
+            extra = {k: rec[k] for k in ("library", "split_pair_ms", "full_table_ms",
+                                         "timed_cases") if k in rec}
+            print(f"kernel[{rec['name']}]: ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                  f"library_ms={lib} bound_ms={rec['bound_ms']:.4f} "
+                  f"({rec['bound_by']}) max_abs_err={rec['max_abs_err']:.3e} "
+                  f"cases={json.dumps(rec['cases'])} {json.dumps(extra)}", flush=True)
+            records.append(rec)
 
-    served = serve(torch, modules, dev)
-    print(f"serve: card={card} prefill_tok_s={served['prefill_tok_s']:.1f} "
-          f"decode_tok_s={served['decode_tok_s']:.1f} wall_s={served['wall_s']:.2f}",
+    served = {"qwen3-8b": serve(torch, dense_path, dev)}
+    print(f"serve: card={card} prefill_tok_s={served['qwen3-8b']['prefill_tok_s']:.1f} "
+          f"decode_tok_s={served['qwen3-8b']['decode_tok_s']:.1f} "
+          f"wall_s={served['qwen3-8b']['wall_s']:.2f}", flush=True)
+    # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"serve: after freeing the qwen3-8b runner, {held / 1e9:.3f} GB still allocated",
           flush=True)
+    if held > 1e9:
+        raise AssertionError(f"the qwen3-8b runner was not freed: {held} bytes allocated")
+    s2 = served["qwen3-30b-a3b"] = serve_templated(torch, templated_path, dev)
+    print(f"serve2: card={card} prefill_tok_s={s2['prefill_tok_s']:.1f} "
+          f"decode_tok_s={s2['decode_tok_s']:.1f} wall_s={s2['wall_s']:.2f}", flush=True)
 
     kernels = []
     for rec in records:
-        m = rec["module"]
+        k = rec["kernel"]
+        by_serve = {m: out["launches"][k.name] for m, out in served.items()
+                    if k.name in out["launches"]}
         kernels.append({
             "name": rec["name"],
             "route": "cuda",
-            "source": f"sutro_tpu_torch/csrc/{rec['name']}.cu",
-            "replaces": m.KERNEL.replaces,
-            "launches": served["launches"][rec["name"]],
+            "source": str(k.source.relative_to(Path(__file__).resolve().parent)),
+            "replaces": k.replaces,
+            "launches": sum(by_serve.values()),
+            "launches_by_serve": by_serve,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],

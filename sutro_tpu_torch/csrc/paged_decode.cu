@@ -8,6 +8,14 @@
 // the attention sink joins the softmax denominator only. f32 online
 // softmax; NEG_INF is -1e30 as in the reference.
 //
+// Carry option (the reference's shared-prefix mode, pfx_cnt/m0/l0/acc0):
+// when pfx_cnt is not null, row b's page walk starts at page pfx_cnt[b]
+// and its online softmax starts from the injected carry m0/l0 [B, NH],
+// acc0 [B, NH, Dh] (prefix_carry.cu computes it once for a shared
+// prefix). A row outside any prefix group has pfx_cnt 0 and the cold
+// carry (-1e30, 0, 0), the kernel's own start. The sink still joins
+// once, in the final denominator. Without the option nothing changes.
+//
 // What bounds it on this card: bytes. Every live token's K and V row of
 // the layer is read once per step (2 * past * KVH*Dh * 2 bytes per row),
 // against ~2 flops per byte read; at 3.35 TB/s that is far below the
@@ -179,6 +187,10 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ win_k,    // [B, W, KD] or null
     const __nv_bfloat16* __restrict__ win_v,
     const float* __restrict__ sink,             // [NH] or null
+    const int32_t* __restrict__ pfx_cnt,        // [B] or null (no carry)
+    const float* __restrict__ m0,               // [B, NH] carry
+    const float* __restrict__ l0,
+    const float* __restrict__ acc0,             // [B, NH, DH]
     __nv_bfloat16* __restrict__ out,            // [B, NH, DH]
     int NH, int KVH, int PS, int MP, int W, int win_len, int window,
     float scale)
@@ -201,15 +213,25 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
 
   for (int i = tid; i < G * DH; i += THREADS)
     qs[i] = __bfloat162float(q[(static_cast<size_t>(b) * NH + h * G) * DH + i]) * scale;
-  if (tid < G) { m_s[tid] = NEG_INF; l_s[tid] = 0.f; }
+  const size_t row_nh = static_cast<size_t>(b) * NH + h * G;  // [b, h*G]
+  const bool carry = pfx_cnt != nullptr;
+  if (tid < G) {
+    m_s[tid] = carry ? m0[row_nh + tid] : NEG_INF;
+    l_s[tid] = carry ? l0[row_nh + tid] : 0.f;
+  }
   float acc[MAX_ACC];
 #pragma unroll
-  for (int i = 0; i < MAX_ACC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < MAX_ACC; ++i) {
+    const int o = tid + i * THREADS;
+    acc[i] = (carry && o < G * DH) ? acc0[row_nh * DH + o] : 0.f;
+  }
   __syncthreads();
 
-  // page walk: from the first in-window token to past_len
+  // page walk: from the first in-window token (and, with the carry,
+  // the first page after the shared prefix) to past_len
   int t_lo = 0;
   if (window > 0 && pos - window + 1 > 0) t_lo = (pos - window + 1) / TT * TT;
+  if (carry) t_lo = max(t_lo, pfx_cnt[b] * PS);
   PageSrc ps{k_pages, v_pages, table + static_cast<size_t>(b) * MP,
              0, PS, KD, off, pos, window, past};
   for (int t0 = t_lo; t0 < past; t0 += TT) {
@@ -251,8 +273,9 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
 template <int DH, int TT>
 int launch(const void* q, const void* kp, const void* vp, const void* table,
            const void* past_len, const void* k_cur, const void* v_cur,
-           const void* win_k, const void* win_v, const void* sink, void* out,
-           int B, int NH, int KVH, int PS, int MP, int W, int win_len,
+           const void* win_k, const void* win_v, const void* sink,
+           const void* pfx_cnt, const void* m0, const void* l0, const void* acc0,
+           void* out, int B, int NH, int KVH, int PS, int MP, int W, int win_len,
            int window, float scale, cudaStream_t stream)
 {
   const int G = NH / KVH;
@@ -270,6 +293,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* table,
       static_cast<const int32_t*>(past_len), static_cast<const __nv_bfloat16*>(k_cur),
       static_cast<const __nv_bfloat16*>(v_cur), static_cast<const __nv_bfloat16*>(win_k),
       static_cast<const __nv_bfloat16*>(win_v), static_cast<const float*>(sink),
+      static_cast<const int32_t*>(pfx_cnt), static_cast<const float*>(m0),
+      static_cast<const float*>(l0), static_cast<const float*>(acc0),
       static_cast<__nv_bfloat16*>(out), NH, KVH, PS, MP, W, win_len, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -279,7 +304,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* table,
 extern "C" int paged_decode_bf16(
     const void* q, const void* k_pages, const void* v_pages, const void* table,
     const void* past_len, const void* k_cur, const void* v_cur,
-    const void* win_k, const void* win_v, const void* sink, void* out,
+    const void* win_k, const void* win_v, const void* sink, const void* pfx_cnt,
+    const void* m0, const void* l0, const void* acc0, void* out,
     int B, int NH, int KVH, int Dh, int PS, int MP, int W, int win_len,
     int window, float scale, void* stream)
 {
@@ -287,13 +313,16 @@ extern "C" int paged_decode_bf16(
   switch (Dh) {
     case 64:
       return launch<64, 64>(q, k_pages, v_pages, table, past_len, k_cur, v_cur, win_k,
-                            win_v, sink, out, B, NH, KVH, PS, MP, W, win_len, window, scale, s);
+                            win_v, sink, pfx_cnt, m0, l0, acc0, out, B, NH, KVH, PS, MP, W,
+                            win_len, window, scale, s);
     case 128:
       return launch<128, 64>(q, k_pages, v_pages, table, past_len, k_cur, v_cur, win_k,
-                             win_v, sink, out, B, NH, KVH, PS, MP, W, win_len, window, scale, s);
+                             win_v, sink, pfx_cnt, m0, l0, acc0, out, B, NH, KVH, PS, MP, W,
+                             win_len, window, scale, s);
     case 256:
       return launch<256, 32>(q, k_pages, v_pages, table, past_len, k_cur, v_cur, win_k,
-                             win_v, sink, out, B, NH, KVH, PS, MP, W, win_len, window, scale, s);
+                             win_v, sink, pfx_cnt, m0, l0, acc0, out, B, NH, KVH, PS, MP, W,
+                             win_len, window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,6 +10,10 @@ out, page tables built by the scheduler).
 - ``decode_step`` / ``decode_multi*``: one token, or a fused window of
   ``steps`` tokens, for every slot of the fixed-size decode batch
   (the paged-decode kernel in every layer), sampling on the device.
+  With shared-prefix groups (``pfx``, EngineConfig.prefix_split) each
+  layer-step first computes every group's prefix carry once for the
+  batch (the prefix-carry kernel) and the paged-decode kernel starts
+  each member row after the shared pages.
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` programs are plain
 methods and its power-of-two shape buckets (there to bound compile
@@ -20,7 +24,7 @@ them (``decode_multi_async`` returns device tensors the scheduler chains
 the next window from).
 
 Not ported yet, and raising: device meshes (multi-GPU), int8 weights
-and int8 KV pages, shared-prefix split decode, constrained decoding's
+and int8 KV pages, constrained decoding's
 ``decode_window``/``commit_window``/``verify_*``, and ``embed_batch``.
 The reference's ``kv_chunk`` (TPU DMA chunking) has no counterpart, so
 ``alloc_pages == num_pages``.
@@ -66,6 +70,10 @@ def set_matmul_precision() -> None:
 
 
 class ModelRunner:
+    # the scheduler builds shared-prefix groups (``pfx``) for the decode
+    # entry points only when the runner takes split decode
+    split_prefix_decode = True
+
     def __init__(
         self,
         mcfg: ModelConfig,
@@ -130,6 +138,15 @@ class ModelRunner:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def _pfx_up(self, pfx) -> Optional[tuple]:
+        """Shared-prefix groups ``((pages [Pp], pfx_len [B]), ...)`` ->
+        int32 device tensors, uploaded once per decode call."""
+        if not pfx:
+            return None
+        return tuple(
+            (self._up(p, torch.int32), self._up(n, torch.int32)) for p, n in pfx
+        )
 
     @staticmethod
     def _host(x: torch.Tensor) -> np.ndarray:
@@ -290,7 +307,9 @@ class ModelRunner:
     # decode
     # ------------------------------------------------------------------
 
-    def _trunk_decode(self, ids, positions, past_len, table, window_past=None):
+    def _trunk_decode(
+        self, ids, positions, past_len, table, window_past=None, pfx=None,
+    ):
         B = ids.shape[0]
         return transformer.forward(
             self.mcfg, self.params, ids, positions,
@@ -298,6 +317,7 @@ class ModelRunner:
             paged_past=(self.cache.k_pages, self.cache.v_pages, table),
             past_len=past_len,
             window_past=window_past,
+            pfx_groups=pfx,
         )
 
     def _sampling_args(self, temperature, top_p, top_k, B):
@@ -323,19 +343,17 @@ class ModelRunner:
         penalties=None,  # (seen_packed [B, ceil(V/8)] uint8, pen_ids [B,K],
         #                   pen_cnt [B,K], presence [B], frequency [B],
         #                   repetition [B])
-        pfx=None,
+        pfx=None,  # ((pages [Pp], pfx_len [B]), ...) split-prefix groups
     ) -> Tuple[np.ndarray, np.ndarray]:
         if faults.ACTIVE is not None:
             faults.inject("runner.decode")
-        if pfx:
-            raise NotImplementedError(
-                "shared-prefix split decode (prefix_split) is not ported yet"
-            )
         B = len(last_tokens)
         ids = self._up(np.asarray(last_tokens)[:, None], torch.int32)
         past = self._up(past_len, torch.int32)
         table = self._up(page_table, torch.int32)
-        logits, _, (k, v) = self._trunk_decode(ids, past[:, None], past, table)
+        logits, _, (k, v) = self._trunk_decode(
+            ids, past[:, None], past, table, pfx=self._pfx_up(pfx)
+        )
         write_kv(
             self.cache, k, v, table, past,
             torch.ones((B,), dtype=torch.int32, device=self.device),
@@ -368,14 +386,17 @@ class ModelRunner:
     # multi-step decode
     # ------------------------------------------------------------------
 
-    def _window_scan(self, last, past_len, table, rng, sampling, steps: int):
+    def _window_scan(
+        self, last, past_len, table, rng, sampling, steps: int, pfx=None,
+    ):
         """``steps`` trunk forwards over the invariant pages plus the
         window buffer, sampling on the device. Returns (toks [steps, B],
         logps [steps, B], wk, wv) with the window K/V NOT yet in the
         pages: the pool is never written inside the window, so no step
         can read a slot it wrote itself. Step ``s`` sees the earlier
         steps' K/V as window slots ``< s`` (the query sits at
-        ``past_len + s``)."""
+        ``past_len + s``). ``pfx``: shared-prefix groups as device
+        tensors (``_pfx_up``)."""
         B = last.shape[0]
         L = self.mcfg.num_layers
         KD = self.mcfg.num_kv_heads * self.mcfg.head_dim
@@ -387,7 +408,7 @@ class ModelRunner:
         for step in range(steps):
             logits, _, (k, v) = self._trunk_decode(
                 cur[:, None], (past_len + step)[:, None], past_len, table,
-                window_past=(wk, wv, step),
+                window_past=(wk, wv, step), pfx=pfx,
             )
             wk[:, :, step] = k.reshape(L, B, KD)
             wv[:, :, step] = v.reshape(L, B, KD)
@@ -426,7 +447,7 @@ class ModelRunner:
         top_p: np.ndarray,           # [B]
         steps: int,
         top_k: Optional[np.ndarray] = None,
-        pfx=None,
+        pfx=None,  # ((pages [Pp], pfx_len [B]), ...) split-prefix groups
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Like ``decode_multi`` but returns DEVICE tensors without
         waiting: callers chain the next window off ``toks[-1]`` before
@@ -434,17 +455,13 @@ class ModelRunner:
         into the pages once, after the last step."""
         if faults.ACTIVE is not None:
             faults.inject("runner.decode")
-        if pfx:
-            raise NotImplementedError(
-                "shared-prefix split decode (prefix_split) is not ported yet"
-            )
         B = past_len.shape[0]
         last = self._up(last_tokens, torch.int32)
         past = self._up(past_len, torch.int32)
         table = self._up(page_table, torch.int32)
         sampling = self._sampling_args(temperature, top_p, top_k, B)
         toks, logps, wk, wv = self._window_scan(
-            last, past, table, rng, sampling, steps
+            last, past, table, rng, sampling, steps, pfx=self._pfx_up(pfx)
         )
         write_kv(
             self.cache, wk, wv, table, past,

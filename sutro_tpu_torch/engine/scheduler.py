@@ -1567,19 +1567,20 @@ class ContinuousBatcher:
         self._spec_win_accepted = 0
 
     def _split_pfx(self, active):
-        """Operands for Hydragen-style split decode (Pallas path,
-        EngineConfig.prefix_split): a tuple of ``(pfx_pages [Pp_g]
+        """Operands for Hydragen-style split decode
+        (EngineConfig.prefix_split): a tuple of ``(pfx_pages [Pp_g]
         int32, pfx_len [B] int32)`` groups, one per distinct
         shared-prefix PAGE RUN among the active rows (co-batched
         templated jobs each get their own group UNLESS the prefix
         store gave them the very same pages, in which case they merge
         into one group and the shared pages are read once; member row
         sets are disjoint, so the carries combine exactly —
-        ops/attention.py). ``None`` when disabled, on the fallback
-        path, or when no active row belongs to a prefix."""
+        ops/attention.py). ``None`` when disabled, when the runner does
+        not take split decode (``runner.split_prefix_decode``), or when
+        no active row belongs to a prefix."""
         if not getattr(self.ecfg, "prefix_split", False):
             return None
-        if not getattr(self.runner, "use_pallas", False):
+        if not getattr(self.runner, "split_prefix_decode", False):
             return None
         groups = []
         by_pages = {}  # page-run tuple -> index into groups
@@ -1594,17 +1595,11 @@ class ContinuousBatcher:
             gi = by_pages.get(key)
             if gi is None:
                 by_pages[key] = len(groups)
-                # pad the page list to a power-of-two bucket so
-                # distinct template lengths don't each retrace the
-                # fused decode programs (the pad pages are the garbage
-                # page 0, fully masked by pfx_len in the carry; the
-                # kernel skips only the REAL pfx_len // PS pages)
-                cap = 1
-                while cap < len(pages):
-                    cap *= 2
-                padded = np.zeros((cap,), np.int32)
-                padded[: len(pages)] = pages
-                groups.append((padded, np.zeros((self.B,), np.int32)))
+                # the reference pads the page list to a power of two
+                # to bound its jit retraces; nothing here retraces
+                groups.append(
+                    (np.asarray(pages, np.int32), np.zeros((self.B,), np.int32))
+                )
                 gi = len(groups) - 1
             pfx_len = groups[gi][1]
             for j in active:
@@ -1612,23 +1607,9 @@ class ContinuousBatcher:
                     pfx_len[j] = ctx.prefix.tokens
         if not groups:
             return None
-        # the tuple's pytree STRUCTURE is a jit trace key: bound the
-        # recompiles from varying group counts by (a) sorting groups by
-        # page-bucket size so (4,8) and (8,4) share a structure and
-        # (b) padding the count to a power of two with dummy groups
-        # (1 garbage page, all-zero pfx_len -> provably cold carry,
-        # an exact no-op costing one tiny masked gather+einsum)
-        groups.sort(key=lambda g: -len(g[0]))
-        n = 1
-        while n < len(groups):
-            n *= 2
-        while len(groups) < n:
-            groups.append(
-                (
-                    np.zeros((1,), np.int32),
-                    np.zeros((self.B,), np.int32),
-                )
-            )
+        # one carry kernel per group and layer-step: the reference's
+        # dummy groups (which bounded its jit retraces) would only add
+        # launches here
         return tuple(groups)
 
     def _spec_enough(self, n_draft: int, active) -> bool:

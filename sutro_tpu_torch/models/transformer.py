@@ -1,9 +1,9 @@
 """Config-driven decoder-only transformer in PyTorch.
 
 Port of ``sutro_tpu/models/transformer.py``; one code path covers the
-dense Qwen3 / Llama 3 / Gemma 3 / gpt-oss-attention families through
+Qwen3 (dense and MoE) / Llama 3 / Gemma 3 / gpt-oss families through
 ``ModelConfig`` flags (QK-norm, sliding windows, attention sinks, post
-norms, projection biases, YaRN RoPE).
+norms, projection biases, YaRN RoPE, MoE layers through ops/moe.py).
 
 - Parameters are plain dicts of tensors with every per-layer tensor
   stacked on a leading layer axis, the reference's ``[L, ...]`` layout,
@@ -17,8 +17,6 @@ norms, projection biases, YaRN RoPE).
 
 The forward returns the chunk's per-layer K/V; the caller
 (engine/runner.py) writes them into the paged cache.
-
-MoE layers are not ported yet (queued in ROADMAP.md) and raise.
 """
 
 from __future__ import annotations
@@ -30,17 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import chunk_attention
+from ..ops.moe import moe_mlp
 from .configs import ModelConfig
 
 Params = Dict[str, Any]
-
-
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported to the CUDA engine yet "
-            "(queued in ROADMAP.md with the grouped-GEMM kernel)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +44,6 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
     ``init`` either ``("normal", fan_in)`` or ``("const", value)``, and
     the per-layer entries under ``"layers"``. The same tree as the
     reference's ``init_params``."""
-    _require_dense(cfg)
     H, L = cfg.hidden_size, cfg.num_layers
     NHD, KVD = cfg.q_size, cfg.kv_size
     F_, Dh = cfg.intermediate_size, cfg.head_dim
@@ -80,9 +70,21 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.post_norms:
         layers["post_attn_norm"] = ((L, H), one)
         layers["post_mlp_norm"] = ((L, H), one)
-    layers["w_gate"] = ((L, H, F_), ("normal", H))
-    layers["w_up"] = ((L, H, F_), ("normal", H))
-    layers["w_down"] = ((L, F_, H), ("normal", F_))
+    if cfg.moe_experts:
+        E, Fm = cfg.moe_experts, cfg.moe_intermediate_size
+        layers["router"] = ((L, H, E), ("normal", H))
+        layers["we_gate"] = ((L, E, H, Fm), ("normal", H))
+        layers["we_up"] = ((L, E, H, Fm), ("normal", H))
+        layers["we_down"] = ((L, E, Fm, H), ("normal", Fm))
+        if cfg.moe_bias:
+            layers["router_b"] = ((L, E), zero)
+            layers["we_gate_b"] = ((L, E, Fm), zero)
+            layers["we_up_b"] = ((L, E, Fm), zero)
+            layers["we_down_b"] = ((L, E, H), zero)
+    else:
+        layers["w_gate"] = ((L, H, F_), ("normal", H))
+        layers["w_up"] = ((L, H, F_), ("normal", H))
+        layers["w_down"] = ((L, F_, H), ("normal", F_))
     spec: Dict[str, Any] = {
         "embed": ((cfg.vocab_size, H), ("normal", H)),
         "final_norm": ((H,), one),
@@ -101,8 +103,9 @@ def init_params(
 ) -> Params:
     """Random init in the :func:`param_spec` layout. Normal draws
     (scaled by ``fan_in ** -0.5``) come from ``generator``, which must
-    live on ``device``, one leading-axis slice at a time, so a
-    full-size model never holds a float32 copy of a whole tensor."""
+    live on ``device``, one leading-axis slice at a time (one layer's
+    ``[E, H, F]`` experts), so a full-size model never holds a float32
+    copy of a whole tensor."""
 
     def make(shape, init):
         kind, arg = init
@@ -214,7 +217,13 @@ def apply_rope(
 
 
 def _mlp(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    _require_dense(cfg)
+    if cfg.moe_experts:
+        return moe_mlp(
+            x, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+            top_k=cfg.moe_top_k, activation=cfg.activation,
+            router_b=lp.get("router_b"), bias_gate=lp.get("we_gate_b"),
+            bias_up=lp.get("we_up_b"), bias_down=lp.get("we_down_b"),
+        )
     gate = x @ lp["w_gate"]
     up = x @ lp["w_up"]
     if cfg.activation == "gelu":
@@ -245,6 +254,8 @@ def layer_apply(
     wv_l: Optional[torch.Tensor] = None,   # [B, W, KVH*Dh]
     win_len: int = 0,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # rope_tables
+    pfx_groups: Optional[tuple] = None,  # shared-prefix decode groups
+    #                                      (ops/attention.py)
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decoder block. Returns ``(h, (k_chunk, v_chunk))``."""
     B, T = h.shape[:2]
@@ -274,6 +285,7 @@ def layer_apply(
         page_table=page_table, past_len=past_len,
         window=window, sink=sink,
         win_k=wk_l, win_v=wv_l, win_len=win_len,
+        pfx_groups=pfx_groups,
     )
     attn = attn.reshape(B, T, cfg.q_size) @ lp["wo"]
     if cfg.attn_bias:
@@ -360,6 +372,9 @@ def forward(
     # win_len int) — K/V of window tokens not yet in the page pool
     window_past: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
     head_index: Optional[torch.Tensor] = None,  # [B] positions to keep
+    # shared-prefix split decode: ((pages [Pp] int32, pfx_len [B] int32),
+    # ...) on the device, one per group (ops/attention.py)
+    pfx_groups: Optional[tuple] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Run the trunk over a chunk.
 
@@ -391,6 +406,7 @@ def forward(
             kw = dict(
                 kp_l=k_pages[layer], vp_l=v_pages[layer],
                 page_table=page_table, past_len=past_len,
+                pfx_groups=pfx_groups,
             )
             if window_past is not None:
                 kw.update(

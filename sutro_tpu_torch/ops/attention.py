@@ -6,6 +6,8 @@ signature of ``sutro_tpu/ops/attention.py``. It dispatches by case, on
 any device:
 
 - T == 1 over pages -> the paged-decode kernel (ops/paged_decode.py);
+  with shared-prefix groups, first one prefix-carry kernel per group
+  (ops/prefix_carry.py), whose carry the paged-decode kernel starts from;
 - no past, any T -> the flash-prefill kernel (ops/flash_prefill.py);
 - T > 1 over paged past (chunked long prompts, suffix prefill) -> one
   layer's pages gathered into a contiguous view, then the dense path
@@ -20,8 +22,7 @@ KV head n // G), causal masking within the chunk, past-length masking,
 per-layer sliding windows, and learnable attention sinks (an extra
 per-head softmax logit with no value row). Masked scores are -1e30.
 
-The reference's ring-attention (``ring_mesh``) and shared-prefix
-(``pfx_groups``) paths are not ported yet.
+The reference's ring-attention (``ring_mesh``) path is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from .flash_prefill import flash_prefill
 from .paged_decode import paged_decode_attention
+from .prefix_carry import prefix_attention_carry
 
 NEG_INF = -1e30
 
@@ -59,6 +61,12 @@ def chunk_attention(
     win_k: Optional[torch.Tensor] = None,
     win_v: Optional[torch.Tensor] = None,
     win_len: int = 0,
+    # shared-prefix (Hydragen-style) decode: ((pages [Pp] int32, pfx_len
+    # [B] int32), ...), one per group; member rows' tables START with
+    # the group's pages (pfx_len 0: not a member; groups are disjoint).
+    # T == 1 only: T > 1 ignores them (the tables still hold the prefix
+    # pages, so the gather computes the same function).
+    pfx_groups: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Returns [B, T, NH, Dh]."""
     B, T, NH, Dh = q.shape
@@ -66,10 +74,16 @@ def chunk_attention(
     window = int(window or 0)
     if past_k_pages is not None:
         if T == 1:
+            carry = {}
+            if pfx_groups:
+                carry = _prefix_carry(
+                    q[:, 0], past_k_pages, past_v_pages, pfx_groups,
+                    past_len + int(win_len), window,
+                )
             out = paged_decode_attention(
                 q[:, 0], past_k_pages, past_v_pages, page_table, past_len,
                 k[:, 0], v[:, 0], window, sink,
-                win_k=win_k, win_v=win_v, win_len=win_len,
+                win_k=win_k, win_v=win_v, win_len=win_len, **carry,
             )
             return out[:, None]
         from ..engine.kvcache import gather_kv_layer
@@ -126,3 +140,26 @@ def chunk_attention(
         weights = torch.softmax(scores, -1)
     out = torch.einsum("bkgts,bskd->btkgd", weights, vals)
     return out.reshape(B, T, NH, Dh).to(q.dtype)
+
+
+def _prefix_carry(q, k_pages, v_pages, pfx_groups, q_pos, window) -> dict:
+    """The paged-decode kernel's carry operands for ``pfx_groups``: one
+    carry per group, combined by max/sum/sum (member sets are disjoint
+    and a non-member's carry is the cold (-1e30, 0, 0), so the
+    combination is exact), and ``pfx_cnt`` = the shared pages each row
+    skips."""
+    PS = k_pages.shape[1]
+    m0 = l0 = acc0 = pfx_cnt = None
+    for pages, pfx_len in pfx_groups:
+        mg, lg, ag = prefix_attention_carry(
+            q, k_pages, v_pages, pages, pfx_len, q_pos, window
+        )
+        cnt = torch.div(pfx_len, PS, rounding_mode="floor")
+        if m0 is None:
+            m0, l0, acc0, pfx_cnt = mg, lg, ag, cnt
+        else:
+            m0 = torch.maximum(m0, mg)
+            l0 = l0 + lg
+            acc0 = acc0 + ag
+            pfx_cnt = pfx_cnt + cnt
+    return dict(pfx_cnt=pfx_cnt.to(torch.int32), m0=m0, l0=l0, acc0=acc0)

@@ -15,7 +15,9 @@ single compile.
 Each kernel's wrapper module owns one :class:`CudaKernel`; its
 ``launches`` counter goes up by one where the wrapper launches the
 kernel and nowhere else, so a run can show that its main path went
-through the kernel.
+through the kernel. A kernel option counted on its own (paged decode
+with the shared-prefix carry) is a second :class:`CudaKernel` over the
+same source.
 """
 
 from __future__ import annotations
@@ -59,23 +61,27 @@ class CudaKernel:
     """One kernel library: its source, the C function it exports with
     that function's ctypes signature, and the launch counter."""
 
-    def __init__(self, name: str, symbol: str, argtypes: List, replaces: str):
+    def __init__(
+        self, name: str, symbol: str, argtypes: List, replaces: str,
+        source: Optional[str] = None,
+    ):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.replaces = replaces  # the TPU kernel it replaces, file:line
         self.launches = 0
+        self._source = source or name  # csrc/<source>.cu
         self._fn = None
 
     @property
     def source(self) -> Path:
-        return CSRC / f"{self.name}.cu"
+        return CSRC / f"{self._source}.cu"
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(
             self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return BUILD_DIR / f"lib{self._source}-{digest}.so"
 
     def function(self):
         """The loaded C entry point, built on first use."""
@@ -103,11 +109,14 @@ class CudaKernel:
 
 def build(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
     """Compile every kernel whose library is missing, one ``nvcc`` per
-    source, all started together. Returns ``{name: compiler log}`` (the
-    ``-Xptxas -v`` register and shared-memory report) for the kernels
-    compiled by this call; raises with the log if any compile fails."""
+    source, all started together. Returns ``{source name: compiler
+    log}`` (the ``-Xptxas -v`` register and shared-memory report) for
+    the sources compiled by this call; raises with the log if any
+    compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [k for k in kernels if not k.library_path().exists()]
+    todo = list({
+        k.library_path(): k for k in kernels if not k.library_path().exists()
+    }.values())  # one compile per source
     if not todo:
         return {}
     nvcc = nvcc_path()
@@ -123,7 +132,7 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
     failed: Optional[str] = None
     for k, tmp, proc in procs:
         log, _ = proc.communicate()
-        logs[k.name] = log
+        logs[k.source.stem] = log
         if proc.returncode != 0:
             failed = failed or f"nvcc failed for {k.source}:\n{log}"
             tmp.unlink(missing_ok=True)

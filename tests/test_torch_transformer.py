@@ -164,5 +164,18 @@ def test_init_params_layout_matches_jax():
 
 
 def test_moe_raises():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.init_params(T_CONFIGS["tiny-moe"], torch.Generator(), torch.float32, "cpu")
+    """MoE layers are ported; what stays refused is malformed input: an
+    unknown MoE method, and a parameter tree without the expert leaves."""
+    from sutro_tpu_torch.ops import moe
+
+    cfg = T_CONFIGS["tiny-moe"]
+    tp = tt.init_params(cfg, torch.Generator(), torch.float32, "cpu")
+    lp = {k: v[0] for k, v in tp["layers"].items()}
+    x = torch.zeros((1, 2, cfg.hidden_size))
+    with pytest.raises(ValueError, match="method"):
+        moe.moe_mlp(x, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+                    top_k=cfg.moe_top_k, method="sparse")
+    tree = jax.tree_util.tree_map(lambda t: t.numpy(), tp)
+    del tree["layers"]["we_up"]
+    with pytest.raises(ValueError, match="layer keys"):
+        params_from_numpy(cfg, tree, "cpu", torch.float32)
