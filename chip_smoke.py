@@ -9,8 +9,9 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the engine's main paths is compiled from
-   ``sutro_tpu_torch/csrc/`` (five sources) with ``nvcc`` (one process
-   per source, all started together);
+   ``sutro_tpu_torch/csrc/`` (five sources; the paged decode's bf16 and
+   int8 entry points are one) with ``nvcc`` (one process per source,
+   all started together);
 3. kernels: each kernel is held against its plain PyTorch version on
    random bfloat16 inputs, and timed beside its plain version, a
    one-call PyTorch yardstick where one exists and its bound (the least
@@ -21,6 +22,10 @@ Phases, in order; any failure raises and exits non-zero:
    yardstick being the memory-efficient SDPA with its log-sum-exp; the
    grouped GEMM at Qwen3-30B-A3B expert shapes (E=128, H=2048, F=768),
    including an lhs with rows past its last group, which must be zero;
+   the paged decode's int8-page option at Qwen3-32B shapes (B=64,
+   NH=64, KVH=8), with and without the carry, on the same quantized
+   values as its plain version, the yardstick being SDPA over K/V
+   gathered and dequantized to bf16 beforehand (twice the bytes);
 4. serve 1: ``ContinuousBatcher.run`` over a ``ModelRunner`` for
    ``qwen3-8b`` at full width and depth with random weights from a
    seed: 96 requests, greedy, top-p and row-seeded rows. Every row must
@@ -40,9 +45,19 @@ Phases, in order; any failure raises and exits non-zero:
    give the same layer-0 attention output (atol = rtol of the kernel
    phase) and the same logits with and without the prefix groups, and
    a fused window with the groups must not wait for the card
-   (``torch.cuda.set_sync_debug_mode``). The engines are
-   ``sutro_tpu_torch.engine.stepprofile.ENGINES``, which the step
-   profile measures.
+   (``torch.cuda.set_sync_debug_mode``);
+6. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+   width and depth with int8 weights and int8 KV pages: 88 requests of
+   16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
+   past). Every row must finish, the int8 paged decode and flash
+   prefill must launch and the bf16 paged decode and page write must
+   not, both decode paths must run, prefill logits of 4 rows must match
+   a cache-free forward through the plain versions, layer 0's decode
+   attention over the serve's int8 pool must match the plain version,
+   and a fused window must not wait for the card.
+
+The engines are ``sutro_tpu_torch.engine.stepprofile.ENGINES``, which
+the step profile measures.
 
 The second-to-last lines are a JSON ``{"kernels": [...]}`` record and
 the card's name and power limit; the last line is
@@ -132,8 +147,9 @@ KD = KVH * DH
 L = 36                       # qwen3-8b depth (page-write shapes)
 
 
-def _decode_inputs(rng, torch, dev):
-    """Ragged rows: past 1..2000, some past=0 rows, page-0 padding rows."""
+def _decode_inputs(rng, torch, dev, nh=NH):
+    """Ragged rows: past 1..2000, some past=0 rows, page-0 padding rows;
+    ``nh`` query heads over KVH=8 KV heads."""
     past = rng.integers(1, 2001, B)
     past[::9] = 0                        # rows at their first decode step
     pad = np.zeros(B, bool)
@@ -149,7 +165,7 @@ def _decode_inputs(rng, torch, dev):
     bf = dict(dtype=torch.bfloat16, device=dev)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     return dict(
-        q=torch.randn((B, NH, DH), generator=g, **bf),
+        q=torch.randn((B, nh, DH), generator=g, **bf),
         k_pages=torch.randn((NP, PS, KD), generator=g, **bf),
         v_pages=torch.randn((NP, PS, KD), generator=g, **bf),
         page_table=torch.as_tensor(table, device=dev),
@@ -158,8 +174,34 @@ def _decode_inputs(rng, torch, dev):
         v_cur=torch.randn((B, KVH, DH), generator=g, **bf),
         win_k=torch.randn((B, 8, KD), generator=g, **bf),
         win_v=torch.randn((B, 8, KD), generator=g, **bf),
-        sink=torch.randn((NH,), generator=g, device=dev),
+        sink=torch.randn((nh,), generator=g, device=dev),
     )
+
+
+def _sdpa_over_gathered(torch, x, k_pages, v_pages, win_len):
+    """Yardstick of a paged decode call: SDPA over K/V already gathered
+    (and, for int8 pages, dequantized to bf16) into [B, KVH, S, Dh]
+    with a key-validity mask; building them is not timed."""
+    import torch.nn.functional as F
+
+    past = x["past_len"].long()
+    dev = past.device
+    ctx = MP * PS
+    W = x["win_k"].shape[1]
+    idx = x["page_table"].long().reshape(-1)
+    kg = k_pages[idx].reshape(B, ctx, KVH, DH)
+    vg = v_pages[idx].reshape(B, ctx, KVH, DH)
+    keys = torch.cat([kg, x["win_k"].reshape(B, W, KVH, DH), x["k_cur"][:, None]], 1)
+    vals = torch.cat([vg, x["win_v"].reshape(B, W, KVH, DH), x["v_cur"][:, None]], 1)
+    keys, vals = keys.transpose(1, 2).contiguous(), vals.transpose(1, 2).contiguous()
+    tok = torch.arange(ctx, device=dev)
+    slot = torch.arange(W, device=dev)
+    mask = torch.cat([tok[None] < past[:, None], (slot < win_len)[None].expand(B, W),
+                      torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
+    mask = mask[:, None, None, :]
+    qs = x["q"][:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, keys, vals, attn_mask=mask,
+                                                  enable_gqa=True)
 
 
 def _rec(kernel, **kw) -> dict:
@@ -167,7 +209,6 @@ def _rec(kernel, **kw) -> dict:
 
 
 def kernel_paged_decode(rng, torch, dev) -> dict:
-    import torch.nn.functional as F
     from sutro_tpu_torch.ops import paged_decode as pd
 
     x = _decode_inputs(rng, torch, dev)
@@ -193,21 +234,7 @@ def kernel_paged_decode(rng, torch, dev) -> dict:
     # yardstick: SDPA over K/V already gathered into [B, KVH, S, Dh]
     # (the gather itself is not timed), with a key-validity mask
     past = x["past_len"].long()
-    ctx = MP * PS
-    idx = x["page_table"].long().reshape(-1)
-    kg = x["k_pages"][idx].reshape(B, ctx, KVH, DH)
-    vg = x["v_pages"][idx].reshape(B, ctx, KVH, DH)
-    keys = torch.cat([kg, x["win_k"].reshape(B, 8, KVH, DH), x["k_cur"][:, None]], 1)
-    vals = torch.cat([vg, x["win_v"].reshape(B, 8, KVH, DH), x["v_cur"][:, None]], 1)
-    keys, vals = keys.transpose(1, 2).contiguous(), vals.transpose(1, 2).contiguous()
-    tok = torch.arange(ctx, device=dev)
-    slot = torch.arange(8, device=dev)
-    mask = torch.cat([tok[None] < past[:, None], (slot < 4)[None].expand(B, 8),
-                      torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
-    mask = mask[:, None, None, :]
-    qs = x["q"][:, :, None, :]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, keys, vals, attn_mask=mask, enable_gqa=True))
+    library_ms = time_ms(_sdpa_over_gathered(torch, x, x["k_pages"], x["v_pages"], 4))
     # bound: every live token's K and V row once, q in, out back
     live = int(past.sum()) + B * (4 + 1)
     nbytes = 2 * live * KD * 2 + 2 * B * NH * DH * 2 + B * MP * 4 + B * 4
@@ -335,18 +362,20 @@ N_PFX = 16
 GE, GH, GF, TOPK = 128, 2048, 768, 8
 
 
-def _prefix_inputs(rng, torch, dev):
+def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP):
     """Rows 0..63 of a templated batch: members' tables start with the
     16 shared pages, every 8th row is outside the group (a short
     untemplated row, so that, as in the serve, no row walks more than
     ~320 tokens of its own); each member has decoded into its own pages
-    past the template and its suffix."""
+    past the template and its suffix. Qwen3-30B-A3B's heads and pages
+    unless ``nh``/``kvh``/``mp`` say otherwise."""
+    n_pool, kd = 1 + QB * mp, kvh * DH
     member = np.ones(QB, bool)
     member[7::8] = False
     past = N_PFX * PS + rng.integers(16, 257, QB) + rng.integers(0, 57, QB)
     past[~member] = rng.integers(16, 321, int((~member).sum()))
-    table = np.zeros((QB, QMP), np.int32)
-    perm = rng.permutation(np.arange(1 + N_PFX, QNP))
+    table = np.zeros((QB, mp), np.int32)
+    perm = rng.permutation(np.arange(1 + N_PFX, n_pool))
     nxt = 0
     for b in range(QB):
         head = N_PFX if member[b] else 0
@@ -360,14 +389,14 @@ def _prefix_inputs(rng, torch, dev):
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
     win_len = 4
     return dict(
-        q=torch.randn((QB, QNH, DH), generator=g, **bf),
-        k_pages=torch.randn((QNP, PS, QKD), generator=g, **bf),
-        v_pages=torch.randn((QNP, PS, QKD), generator=g, **bf),
+        q=torch.randn((QB, nh, DH), generator=g, **bf),
+        k_pages=torch.randn((n_pool, PS, kd), generator=g, **bf),
+        v_pages=torch.randn((n_pool, PS, kd), generator=g, **bf),
         page_table=i32(table), past_len=i32(past),
-        k_cur=torch.randn((QB, QKVH, DH), generator=g, **bf),
-        v_cur=torch.randn((QB, QKVH, DH), generator=g, **bf),
-        win_k=torch.randn((QB, 8, QKD), generator=g, **bf),
-        win_v=torch.randn((QB, 8, QKD), generator=g, **bf),
+        k_cur=torch.randn((QB, kvh, DH), generator=g, **bf),
+        v_cur=torch.randn((QB, kvh, DH), generator=g, **bf),
+        win_k=torch.randn((QB, 8, kd), generator=g, **bf),
+        win_v=torch.randn((QB, 8, kd), generator=g, **bf),
         win_len=win_len,
         pages=i32(np.arange(1, 1 + N_PFX)),
         pfx_len=i32(np.where(member, N_PFX * PS, 0)),
@@ -460,6 +489,93 @@ def kernel_prefix_split(rng, torch, dev) -> list:
              bound_ms=bd, bound_by=byd, library_ms=None, cases=dec_errs,
              split_pair_ms=pair_ms, full_table_ms=full_ms),
     ]
+
+
+# Qwen3-32B decode shapes (serve 3): NH=64 over KVH=8, Dh=128, the
+# qwen3-8b pool's 64-token pages and 32 pages per row, int8 pages
+Q32_NH = 64
+
+
+def _int8_pools(torch, x):
+    """The bf16 pools of ``x`` quantized per token, as the int8 KV write
+    does; the bf16 ones are dropped."""
+    from sutro_tpu_torch.engine.kvcache import _quantize_tokens
+
+    for name in ("k", "v"):
+        q, sc = _quantize_tokens(x.pop(f"{name}_pages"))
+        x[f"{name}_pages"], x[f"{name}_scale"] = q, sc
+    return x
+
+
+def kernel_paged_decode_int8(rng, torch, dev) -> dict:
+    """The int8-page option at Qwen3-32B decode shapes, held against the
+    plain version on the same quantized values: windows, sink, slots,
+    and the carry option (its carry from the plain int8 prefix carry,
+    against the plain decode over the full table)."""
+    from sutro_tpu_torch.ops import paged_decode as pd
+    from sutro_tpu_torch.ops import prefix_carry as pc
+
+    x = _int8_pools(torch, _decode_inputs(rng, torch, dev, nh=Q32_NH))
+    scales = dict(k_scale=x["k_scale"], v_scale=x["v_scale"])
+    base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
+            x["k_cur"], x["v_cur"])
+    cases = {
+        "window0_slots8": dict(window=0, win_k=x["win_k"], win_v=x["win_v"], win_len=5),
+        "window500_sink_slots8": dict(window=500, sink=x["sink"], win_k=x["win_k"],
+                                      win_v=x["win_v"], win_len=3),
+        "window0_no_slots": dict(window=0),
+        "window100_sink_no_slots": dict(window=100, sink=x["sink"]),
+    }
+    errs = {}
+    for name, kw in cases.items():
+        got = pd.paged_decode_attention(*base, **kw, **scales)
+        want = pd.paged_decode_plain(*base, **kw, **scales)
+        torch.cuda.synchronize()
+        errs[name] = check_close(f"paged_decode_int8[{name}]", got, want)
+    # with the carry: 56 of 64 rows share a 1,024-token template
+    y = _int8_pools(torch, _prefix_inputs(rng, torch, dev, nh=Q32_NH, kvh=KVH, mp=MP))
+    ys = dict(k_scale=y["k_scale"], v_scale=y["v_scale"])
+    ybase = (y["q"], y["k_pages"], y["v_pages"], y["page_table"], y["past_len"],
+             y["k_cur"], y["v_cur"])
+    ywin = dict(win_k=y["win_k"], win_v=y["win_v"], win_len=y["win_len"])
+    for name, window in (("carry_window0", 0), ("carry_window600_cuts_prefix", 600)):
+        m0, l0, acc0 = pc.prefix_attention_carry(
+            y["q"], y["k_pages"], y["v_pages"], y["pages"], y["pfx_len"], y["q_pos"],
+            window, **ys)
+        got = pd.paged_decode_attention(*ybase, window, **ywin, pfx_cnt=y["pfx_cnt"], m0=m0,
+                                        l0=l0, acc0=acc0, **ys)
+        want = pd.paged_decode_plain(*ybase, window, **ywin, **ys)
+        torch.cuda.synchronize()
+        errs[name] = check_close(f"paged_decode_int8[{name}]", got, want)
+    del y
+    # the main path's call: qwen3-32b (no window, no sink) inside a window
+    main = dict(window=0, win_k=x["win_k"], win_v=x["win_v"], win_len=4, **scales)
+    ms = time_ms(lambda: pd.paged_decode_attention(*base, **main))
+    plain_ms = time_ms(lambda: pd.paged_decode_plain(*base, **main), iters=5)
+    # yardstick: SDPA over K/V gathered and dequantized to bf16 outside
+    # the timed region; it reads 2 bytes per K/V element, twice the
+    # kernel's 1
+    idx = x["page_table"].long().reshape(-1)
+    deq = {}
+    for name in ("k", "v"):
+        pool = torch.zeros((NP, PS, KD), dtype=torch.bfloat16, device=dev)
+        pool[idx] = (x[f"{name}_pages"][idx].float()
+                     * x[f"{name}_scale"][idx][..., None]).to(torch.bfloat16)
+        deq[name] = pool
+    library_ms = time_ms(_sdpa_over_gathered(torch, x, deq["k"], deq["v"], 4))
+    del deq
+    # bound: every live token's int8 K and V row and its two scales
+    # once, the window slots and current token in bf16, q in, out back
+    past = x["past_len"].long()
+    live_pages = int(past.sum())
+    live = live_pages + B * (4 + 1)
+    nbytes = (2 * live_pages * (KD + 4) + 2 * B * (4 + 1) * KD * 2
+              + 2 * B * Q32_NH * DH * 2 + B * MP * 4 + B * 4)
+    bms, by = bound_ms(nbytes, 4 * live * Q32_NH * DH)
+    return _rec(pd.INT8, max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms, cases=errs,
+                library="SDPA over K/V gathered and dequantized to bf16 beforehand "
+                        "(reads 2x the kernel's K/V bytes)")
 
 
 def _library_carry(torch, x, want):
@@ -669,12 +785,14 @@ def count_decode_calls(runner, calls: dict) -> None:
         setattr(runner, name, counted)
 
 
-def run_batch(torch, runner, requests, kernels, seed: int):
+def run_batch(torch, runner, requests, kernels, seed: int, absent=()):
     """``ContinuousBatcher.run`` with every launch counter at 0 just
-    before it; returns (results, launches during the run, timer, wall)."""
+    before it; returns (results, launches during the run, timer, wall).
+    Every kernel of ``kernels`` must launch in the run, and none of
+    ``absent`` (a route the path must not take)."""
     from sutro_tpu_torch.engine.scheduler import ContinuousBatcher
 
-    for k in kernels:
+    for k in (*kernels, *absent):
         k.launches = 0
     results = {}
     batcher = ContinuousBatcher(runner, stop_ids=[], seed=seed)
@@ -683,7 +801,7 @@ def run_batch(torch, runner, requests, kernels, seed: int):
     state = batcher.run(requests, on_result=lambda r: results.__setitem__(r.row_id, r))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = {k.name: k.launches for k in (*kernels, *absent)}
     if state != "completed" or len(results) != len(requests):
         raise AssertionError(f"run ended {state!r} with {len(results)}/{len(requests)} rows")
     for r in results.values():
@@ -694,9 +812,13 @@ def run_batch(torch, runner, requests, kernels, seed: int):
             raise AssertionError(f"row {r.row_id}: token id out of range")
         if not math.isfinite(r.cumulative_logprob):
             raise AssertionError(f"row {r.row_id}: non-finite logprob")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for k in kernels:
+        if launches[k.name] <= 0:
+            raise AssertionError(f"kernel {k.name} was not launched on the main path")
+    for k in absent:
+        if launches[k.name]:
+            raise AssertionError(f"kernel {k.name} launched {launches[k.name]} times on a "
+                                 "path that must not take it")
     return results, launches, batcher.timer.summary(), wall
 
 
@@ -884,21 +1006,7 @@ def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0) ->
         np.array([0.0] * 4 + [0.8] * 4, np.float32),
         np.array([1.0] * 4 + [0.9] * 4, np.float32), ecfg.decode_multi_step,
     )
-    runner.decode_multi_async(*window_args, pfx=pfx)  # warm-up: allocator, pinned buffers
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            runner.decode_multi_async(*window_args, pfx=pfx)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    waits = sorted({str(w.message).splitlines()[0] for w in caught
-                    if "called a synchronizing CUDA operation" in str(w.message)})
-    print(f"serve2: host waits inside a fused window with prefix groups: {len(waits)} "
-          f"{waits}", flush=True)
-    if waits:
-        raise AssertionError(f"a fused window with prefix groups waited for the card: {waits}")
+    check_window_no_wait(torch, runner, window_args, "serve2 (prefix groups)", pfx=pfx)
 
     calls = {}
     count_decode_calls(runner, calls)
@@ -914,9 +1022,144 @@ def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0) ->
     return out
 
 
-def main() -> int:
+def check_int8_decode_attention(torch, runner, rows, label: str) -> float:
+    """``rows`` prefilled into the int8 pool (pages 1..; a row longer
+    than ``prefill_chunk`` goes through chunked prefill over its int8
+    past), then layer 0's decode attention over those real pages: the
+    kernel (through ``chunk_attention``) against the plain version on the
+    same quantized values, at the kernel phase's atol = rtol. Returns
+    the max |err|."""
+    from sutro_tpu_torch.engine.kvcache import pages_needed
+    from sutro_tpu_torch.ops import attention
+    from sutro_tpu_torch.ops import paged_decode as pd
+
+    dev, mcfg, ecfg, cache = runner.device, runner.mcfg, runner.ecfg, runner.cache
+    tables, nxt = np.zeros((len(rows), ecfg.max_pages_per_seq), np.int32), 1
+    for i, r in enumerate(rows):
+        n = pages_needed(len(r) + 1, ecfg.kv_page_size)
+        tables[i, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+        runner.prefill(r, tables[i])
+    n_rows = len(rows)
+    past = torch.as_tensor([len(r) for r in rows], dtype=torch.int32, device=dev)
+    table_t = torch.as_tensor(tables, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = dict(dtype=torch.bfloat16, device=dev, generator=g)
+    q = torch.randn((n_rows, 1, mcfg.num_heads, mcfg.head_dim), **bf)
+    k, v = (torch.randn((n_rows, 1, mcfg.num_kv_heads, mcfg.head_dim), **bf)
+            for _ in range(2))
+    scales = dict(k_scale=cache.k_scale[0], v_scale=cache.v_scale[0])
+    before = pd.INT8.launches
+    got = attention.chunk_attention(
+        q, k, v, positions=past[:, None], valid_len=torch.ones_like(past), past_len=past,
+        page_table=table_t, past_k_pages=cache.k_pages[0], past_v_pages=cache.v_pages[0],
+        past_k_scale=scales["k_scale"], past_v_scale=scales["v_scale"])[:, 0]
+    if pd.INT8.launches != before + 1:
+        raise AssertionError(f"{label}: decode attention over the int8 pool did not launch "
+                             "paged_decode_int8")
+    want = pd.paged_decode_plain(q[:, 0], cache.k_pages[0], cache.v_pages[0], table_t, past,
+                                 k[:, 0], v[:, 0], **scales)
+    err = check_close(f"{label}: layer-0 decode attention over the int8 pool", got, want)
+    print(f"{label}: layer-0 decode attention over the int8 pool (rows of "
+          f"{[len(r) for r in rows]} tokens), kernel vs plain: max_abs={err:.3e}", flush=True)
+    return err
+
+
+def check_window_no_wait(torch, runner, args, label: str, **kw) -> None:
+    """One fused window (after a warm-up) under
+    ``torch.cuda.set_sync_debug_mode``: no operation may wait for the card."""
+    runner.decode_multi_async(*args, **kw)  # warm-up: allocator, pinned buffers
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            runner.decode_multi_async(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    waits = sorted({str(w.message).splitlines()[0] for w in caught
+                    if "called a synchronizing CUDA operation" in str(w.message)})
+    print(f"{label}: host waits inside a fused window: {len(waits)} {waits}", flush=True)
+    if waits:
+        raise AssertionError(f"{label}: a fused window waited for the card: {waits}")
+
+
+def serve_int8(torch, kernels, absent, dev, n_requests: int = 96, seed: int = 0) -> dict:
+    """Serve 3: qwen3-32b at full width and depth with int8 weights and
+    int8 KV pages: 88 prompts of 16-500 tokens and 8 of 1,200-1,900
+    (chunked prefill over an int8 past)."""
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.runner import ModelRunner
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    mcfg = MODEL_CONFIGS["qwen3-32b"]
+    ecfg = EngineConfig(**ENGINES[mcfg.name][0], seed=seed)
+    t0 = time.monotonic()
+    runner = ModelRunner(mcfg, ecfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    info = runner.device_info()
+    c = runner.cache
+    pool = sum(t.numel() * t.element_size() for t in (c.k_pages, c.v_pages, c.k_scale,
+                                                      c.v_scale))
+    print(f"serve3: {mcfg.name} L={mcfg.num_layers} H={mcfg.hidden_size} "
+          f"quantize={ecfg.quantize} kv_quantize={ecfg.kv_quantize} "
+          f"params={info['n_params']:,} ({info['param_bytes'] / 1e9:.2f} GB) "
+          f"kv_pool={pool / 1e9:.2f} GB init={init_s:.1f}s "
+          f"allocated={torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 2)
+    lengths = np.concatenate([rng.integers(16, 501, n_requests - 8),
+                              rng.integers(1200, 1901, 8)])
+    rng.shuffle(lengths)
+    prompts = [np.asarray(tok.encode("".join(rng.choice(ALPHABET, int(n)))), np.int32)
+               for n in lengths]
+    short = [p for p in prompts if len(p) <= 500]
+    long_ = [p for p in prompts if len(p) > ecfg.prefill_chunk]
+    rel = check_prefill_logits(torch, runner, short[:4], "serve3")
+    attn_err = check_int8_decode_attention(torch, runner, short[:3] + long_[:1], "serve3")
+
+    n_rows = 8
+    tables = np.zeros((n_rows, ecfg.max_pages_per_seq), np.int32)
+    tables[:, :8] = np.arange(1, 1 + n_rows * 8).reshape(n_rows, 8)
+    window_args = (
+        rng.integers(3, 256, n_rows).astype(np.int32),
+        rng.integers(16, 400, n_rows).astype(np.int32), tables, 7,
+        np.array([0.0] * 4 + [0.8] * 4, np.float32),
+        np.array([1.0] * 4 + [0.9] * 4, np.float32), ecfg.decode_multi_step,
+    )
+    check_window_no_wait(torch, runner, window_args, "serve3")
+
+    calls = {}
+    count_decode_calls(runner, calls)
+    results, launches, timer, wall = run_batch(
+        torch, runner, mixed_requests(prompts), kernels, seed, absent=absent)
+    if min(calls["decode_step"], calls["decode_multi_async"]) <= 0:
+        raise AssertionError(f"the batch did not take both decode paths: {calls}")
+    out = serve_summary(prompts, 64, results, launches, calls, timer, wall, rel)
+    out["layer0_int8_attn_max_abs"] = attn_err
+    out["long_prompts"] = len(long_)
+    print("serve3: " + json.dumps(out), flush=True)
+    return out
+
+
+def free_card(torch, model: str) -> None:
+    """The previous serve's runner must be gone before the next one."""
     import gc
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"serve: after freeing the {model} runner, {held / 1e9:.3f} GB still allocated",
+          flush=True)
+    if held > 1e9:
+        raise AssertionError(f"the {model} runner was not freed: {held} bytes allocated")
+
+
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -934,9 +1177,12 @@ def main() -> int:
     dense_path = [paged_decode.KERNEL, kv_write.KERNEL, flash_prefill.KERNEL]
     templated_path = [grouped_matmul.KERNEL, prefix_carry.KERNEL, paged_decode.CARRY,
                       kv_write.KERNEL, flash_prefill.KERNEL]
+    int8_path = [paged_decode.INT8, flash_prefill.KERNEL]
+    # no silent bf16 route under an int8 pool
+    int8_absent = [paged_decode.KERNEL, paged_decode.CARRY, kv_write.KERNEL]
 
     t0 = time.monotonic()
-    logs = cuda_build.build(dense_path + templated_path)
+    logs = cuda_build.build(dense_path + templated_path + int8_path)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -946,7 +1192,7 @@ def main() -> int:
     records = []
     rng = np.random.default_rng(1234)
     for fn in (kernel_paged_decode, kernel_kv_write, kernel_flash_prefill,
-               kernel_prefix_split, kernel_grouped_matmul):
+               kernel_prefix_split, kernel_grouped_matmul, kernel_paged_decode_int8):
         recs = fn(rng, torch, dev)
         torch.cuda.empty_cache()
         for rec in recs if isinstance(recs, list) else [recs]:
@@ -964,16 +1210,15 @@ def main() -> int:
           f"decode_tok_s={served['qwen3-8b']['decode_tok_s']:.1f} "
           f"wall_s={served['qwen3-8b']['wall_s']:.2f}", flush=True)
     # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    print(f"serve: after freeing the qwen3-8b runner, {held / 1e9:.3f} GB still allocated",
-          flush=True)
-    if held > 1e9:
-        raise AssertionError(f"the qwen3-8b runner was not freed: {held} bytes allocated")
+    free_card(torch, "qwen3-8b")
     s2 = served["qwen3-30b-a3b"] = serve_templated(torch, templated_path, dev)
     print(f"serve2: card={card} prefill_tok_s={s2['prefill_tok_s']:.1f} "
           f"decode_tok_s={s2['decode_tok_s']:.1f} wall_s={s2['wall_s']:.2f}", flush=True)
+    # serve 3: 33.6 GB of int8 weights and a 17.3 GB int8 pool
+    free_card(torch, "qwen3-30b-a3b")
+    s3 = served["qwen3-32b"] = serve_int8(torch, int8_path, int8_absent, dev)
+    print(f"serve3: card={card} prefill_tok_s={s3['prefill_tok_s']:.1f} "
+          f"decode_tok_s={s3['decode_tok_s']:.1f} wall_s={s3['wall_s']:.2f}", flush=True)
 
     kernels = []
     for rec in records:

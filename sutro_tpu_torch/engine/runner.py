@@ -23,9 +23,14 @@ waiting, and results cross to the host only where the reference fetched
 them (``decode_multi_async`` returns device tensors the scheduler chains
 the next window from).
 
-Not ported yet, and raising: device meshes (multi-GPU), int8 weights
-and int8 KV pages, constrained decoding's
-``decode_window``/``commit_window``/``verify_*``, and ``embed_batch``.
+int8 (``EngineConfig.quantize`` / ``kv_quantize``, as in the
+reference): weight-only int8 projections (ops/quant.py, dequantized
+before each product) and int8 KV pages with per-token scales
+(engine/kvcache.py), read by the paged-decode kernel's int8 option.
+
+Not ported yet, and raising: device meshes (multi-GPU), constrained
+decoding's ``decode_window``/``commit_window``/``verify_*``, and
+``embed_batch``.
 The reference's ``kv_chunk`` (TPU DMA chunking) has no counterpart, so
 ``alloc_pages == num_pages``.
 """
@@ -39,6 +44,7 @@ import torch
 
 from ..models import transformer
 from ..models.configs import ModelConfig
+from ..ops.quant import is_quantized, params_bytes, quantize_params, tensors
 from ..ops.sampling import (
     apply_penalties,
     cumulative_logprob,
@@ -60,6 +66,19 @@ def next_bucket(n: int, lo: int = 16, hi: int = 1 << 20) -> int:
     while b < n and b < hi:
         b *= 2
     return b
+
+
+def dequantize_payload(payload: dict, dtype) -> dict:
+    """A tier's int8 payload (values plus per-token scales) -> float
+    values in ``dtype`` (copy of ``sutro_tpu/engine/kvtier.py``'s)."""
+    return {
+        "k": (
+            payload["k"].astype(np.float32) * payload["ks"][..., None]
+        ).astype(dtype),
+        "v": (
+            payload["v"].astype(np.float32) * payload["vs"][..., None]
+        ).astype(dtype),
+    }
 
 
 def set_matmul_precision() -> None:
@@ -94,16 +113,9 @@ class ModelRunner:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"ModelRunner: unsupported device {self.device}")
         set_matmul_precision()
-        if ecfg.quantize:
-            raise NotImplementedError(
-                "int8 weights (quantize) are not ported to the CUDA engine "
-                "yet (ROADMAP.md)"
-            )
-        if ecfg.kv_quantize:
-            raise NotImplementedError(
-                "int8 KV pages (kv_quantize) are not ported to the CUDA "
-                "engine yet (ROADMAP.md)"
-            )
+        if ecfg.quantize not in (None, "int8"):
+            raise ValueError(f"Unknown quantize mode {ecfg.quantize!r} (only 'int8')")
+        quantize = ecfg.quantize == "int8"
         n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
         if any(
             (getattr(ecfg, axis) or 1) > 1 for axis in ("dp", "tp", "ep", "sp", "pp")
@@ -114,9 +126,18 @@ class ModelRunner:
             )
         self.dtype = getattr(torch, ecfg.param_dtype)
         if params is None:
+            # int8: each layer's slice is quantized as it is drawn, so the
+            # full-precision model is never resident
             gen = torch.Generator(device=self.device)
             gen.manual_seed(ecfg.seed)
-            params = transformer.init_params(mcfg, gen, self.dtype, self.device)
+            params = transformer.init_params(
+                mcfg, gen, self.dtype, self.device, quantize=quantize
+            )
+        elif quantize and not any(
+            is_quantized(t)
+            for t in (*params["layers"].values(), params.get("lm_head"))
+        ):
+            params = quantize_params(params)
         self.params = params
         if num_pages is None:
             num_pages = 1 + ecfg.decode_batch_size * ecfg.max_pages_per_seq
@@ -152,24 +173,29 @@ class ModelRunner:
     def _host(x: torch.Tensor) -> np.ndarray:
         return x.detach().cpu().numpy()
 
+    def _paged(self, page_table: torch.Tensor) -> tuple:
+        """The ``paged_past`` tuple for transformer.forward: 3 elements
+        for a bf16 cache, 5 (with the per-token scales) for int8."""
+        c = self.cache
+        if c.quantized:
+            return (c.k_pages, c.v_pages, c.k_scale, c.v_scale, page_table)
+        return (c.k_pages, c.v_pages, page_table)
+
     def device_info(self) -> dict:
         """Device + model facts the bottleneck doctor grades decode
         windows against. Computed once per runner."""
         cached = getattr(self, "_device_info", None)
         if cached is not None:
             return cached
-        leaves = [
-            t for v in self.params.values()
-            for t in (v.values() if isinstance(v, dict) else [v])
-        ]
         cuda = self.device.type == "cuda"
         info = {
             "device_kind": (
                 torch.cuda.get_device_name(self.device) if cuda else "cpu"
             ),
             "n_devices": torch.cuda.device_count() if cuda else 1,
-            "param_bytes": int(sum(t.numel() * t.element_size() for t in leaves)),
-            "n_params": int(sum(t.numel() for t in leaves)),
+            # int8 leaves and their scales count at their own widths
+            "param_bytes": params_bytes(self.params),
+            "n_params": int(sum(t.numel() for t in tensors(self.params))),
             "num_layers": int(self.mcfg.num_layers),
             "kv_heads": int(self.mcfg.num_kv_heads),
             "head_dim": int(self.mcfg.head_dim),
@@ -184,27 +210,42 @@ class ModelRunner:
 
     def read_pages(self, page_ids) -> dict:
         """Host copies of ``page_ids``'s K/V payloads, ``k``/``v``
-        ``[L, n, PS, KD]`` float32 (exact for a bfloat16 pool; numpy has
-        no bfloat16). Fetched synchronously, so the caller may free the
-        pages the moment this returns."""
+        ``[L, n, PS, KD]``: float32 for a bfloat16 pool (exact; numpy has
+        no bfloat16), int8 plus the per-token scales ``ks``/``vs`` ``[L,
+        n, PS]`` for an int8 pool. Fetched synchronously, so the caller
+        may free the pages the moment this returns."""
         ids = torch.as_tensor(np.asarray(page_ids, np.int64), device=self.device)
         c = self.cache
+        if c.quantized:
+            return {
+                "k": self._host(c.k_pages[:, ids]),
+                "v": self._host(c.v_pages[:, ids]),
+                "ks": self._host(c.k_scale[:, ids]),
+                "vs": self._host(c.v_scale[:, ids]),
+            }
         return {
             "k": self._host(c.k_pages[:, ids].float()),
             "v": self._host(c.v_pages[:, ids].float()),
         }
 
     def write_pages(self, page_ids, payload: dict) -> None:
-        """Upload a raw-dtype payload from ``read_pages`` into freshly
-        allocated pages. The tier's int8 payloads are not ported yet."""
-        if np.asarray(payload["k"]).dtype == np.int8:
-            raise NotImplementedError(
-                "int8 tier payloads are not ported to the CUDA engine yet"
-            )
+        """Upload a payload into freshly allocated pages: a raw-dtype
+        one from ``read_pages``, or the tier's int8 form (values plus
+        per-token scales). An int8 payload promotes into a bfloat16 pool
+        by dequantizing on the way up, as in the reference."""
         ids = torch.as_tensor(np.asarray(page_ids, np.int64), device=self.device)
-        dt = self.cache.k_pages.dtype
-        self.cache.k_pages[:, ids] = self._up(payload["k"], dt)
-        self.cache.v_pages[:, ids] = self._up(payload["v"], dt)
+        c = self.cache
+        if c.quantized:
+            c.k_pages[:, ids] = self._up(payload["k"], torch.int8)
+            c.v_pages[:, ids] = self._up(payload["v"], torch.int8)
+            c.k_scale[:, ids] = self._up(payload["ks"], torch.float32)
+            c.v_scale[:, ids] = self._up(payload["vs"], torch.float32)
+            return
+        if np.asarray(payload["k"]).dtype == np.int8:
+            payload = dequantize_payload(payload, np.float32)
+        dt = c.k_pages.dtype
+        c.k_pages[:, ids] = self._up(payload["k"], dt)
+        c.v_pages[:, ids] = self._up(payload["v"], dt)
 
     # ------------------------------------------------------------------
     # prefill
@@ -226,10 +267,7 @@ class ModelRunner:
         last = (valid_len - 1).clamp(min=0)
         kw = {}
         if with_past:
-            kw = dict(
-                paged_past=(self.cache.k_pages, self.cache.v_pages, table),
-                past_len=start,
-            )
+            kw = dict(paged_past=self._paged(table), past_len=start)
         logits, _, (k, v) = transformer.forward(
             self.mcfg, self.params, ids, positions, valid_len,
             head_index=last, **kw,
@@ -314,7 +352,7 @@ class ModelRunner:
         return transformer.forward(
             self.mcfg, self.params, ids, positions,
             torch.ones((B,), dtype=torch.int32, device=self.device),
-            paged_past=(self.cache.k_pages, self.cache.v_pages, table),
+            paged_past=self._paged(table),
             past_len=past_len,
             window_past=window_past,
             pfx_groups=pfx,
@@ -400,8 +438,13 @@ class ModelRunner:
         B = last.shape[0]
         L = self.mcfg.num_layers
         KD = self.mcfg.num_kv_heads * self.mcfg.head_dim
-        # fused trailing axis, like the page pool (engine/kvcache.py)
-        wk = torch.zeros((L, B, steps, KD), dtype=self.dtype, device=self.device)
+        # fused trailing axis, like the page pool (engine/kvcache.py);
+        # under an int8 pool the window holds unquantized K/V in the
+        # activation dtype, as in the reference (write_kv quantizes them
+        # at the commit)
+        dtype = (getattr(torch, self.ecfg.activation_dtype) if self.cache.quantized
+                 else self.dtype)
+        wk = torch.zeros((L, B, steps, KD), dtype=dtype, device=self.device)
         wv = torch.zeros_like(wk)
         toks, logps = [], []
         cur = last

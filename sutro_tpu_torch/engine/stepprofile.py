@@ -1,8 +1,8 @@
 """Where a decode step's time goes on the card.
 
-    python -m sutro_tpu_torch.engine.stepprofile [--model qwen3-8b|qwen3-30b-a3b]
+    python -m sutro_tpu_torch.engine.stepprofile [--model qwen3-8b|qwen3-30b-a3b|qwen3-32b]
 
-Builds one of the two engines of ``chip_smoke.py``'s serve phases
+Builds one of the three engines of ``chip_smoke.py``'s serve phases
 (:data:`ENGINES`, which the smoke test builds its engines from) with
 random weights from a seed and fills its pool, then times and profiles
 its phases:
@@ -15,7 +15,10 @@ its phases:
   once into pages 1..16 and 64 rows' 16-256-token suffixes after it;
   the decode phases carry the template as one prefix group;
   ``prefill`` is one ``prefill_batch_at`` of 8 suffixes x 256 tokens
-  over the template.
+  over the template;
+- ``qwen3-32b``: int8 weights and int8 KV pages, otherwise as
+  ``qwen3-8b`` (B=64 slots, 64-token pages, 32 pages per row, 64 rows
+  of 16-500 tokens, ``prefill`` 8 rows x 500 tokens).
 
 The phases, in this order, each after a warm-up call:
 
@@ -30,6 +33,9 @@ The phases, in this order, each after a warm-up call:
 - with a template, ``window_no_split``: the same window without the
   prefix groups (every row walks the template's pages itself), so the
   split's device and host costs can be read side by side;
+- with int8 weights, ``dequantize``: every int8 leaf dequantized once
+  (``ops/quant.materialize``), as each forward does: the per-step
+  dequantization cost on its own line;
 - ``seeded_step``: one ``decode_step`` with per-row seeds (the path a
   batch takes while any row carries ``row_seed``);
 - ``prefill`` as above.
@@ -118,7 +124,7 @@ def profile_phase(name: str, fn: Callable[[], None], repeats: int = 5) -> Dict:
     }
 
 
-# chip_smoke.py's two serve engines, by model: the EngineConfig fields
+# chip_smoke.py's three serve engines, by model: the EngineConfig fields
 # and the length in tokens of the template every request shares
 ENGINES = {
     "qwen3-8b": (
@@ -131,6 +137,14 @@ ENGINES = {
              max_model_len=1536, prefill_chunk=2048, decode_multi_step=8,
              prefix_split=True),
         1024,   # a shared 1,024-token template
+    ),
+    # int8 weights and int8 KV pages: the one way a 32B dense model
+    # serves on one 80 GB card (33.6 GB of weights, 17.3 GB of pool)
+    "qwen3-32b": (
+        dict(kv_page_size=64, max_pages_per_seq=32, decode_batch_size=64,
+             max_model_len=2048, prefill_chunk=512, decode_multi_step=8,
+             quantize="int8", kv_quantize="int8"),
+        0,
     ),
 }
 
@@ -185,6 +199,20 @@ def spread_routing(seed: int = 0):
         yield
     finally:
         moe._route = real
+
+
+def dequantize_all(params, dtype: torch.dtype) -> None:
+    """Materialize every int8 leaf once, as one forward does."""
+    from ..ops.quant import is_quantized, materialize
+
+    for leaf in [*params["layers"].values(), params.get("lm_head")]:
+        if not is_quantized(leaf):
+            continue
+        if leaf["qw"].dim() == 2:   # lm_head
+            materialize(leaf, dtype)
+            continue
+        for i in range(leaf["qw"].shape[0]):   # one layer's slice per forward
+            materialize({"qw": leaf["qw"][i], "scale": leaf["scale"][i]}, dtype)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -248,6 +276,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         phases["window_spread_routing"] = window_spread
     if pfx is not None:
         phases["window_no_split"] = lambda: window(pfx=None)
+    if ecfg.quantize:
+        phases["dequantize"] = lambda: dequantize_all(runner.params, runner.dtype)
     phases["seeded_step"] = lambda: runner.decode_step(
         last, past, tables, 1, temp, top_p,
         row_seeds=np.arange(B, dtype=np.int64), pfx=pfx)

@@ -4,7 +4,10 @@
 numpy arrays (``{"embed", "final_norm", "layers": {...}, "lm_head"?}``
 with ``[L, ...]``-stacked layer tensors), into the port's dict of
 tensors, so both engines compute the same function in the tests. The
-layouts are the same, so this is a checked copy.
+layouts are the same, so this is a checked copy. Quantized leaves, as
+the reference's ``quantize_params`` returns them (``{"qw": int8 [...,
+in, out], "scale": f32 [..., 1, out]}``), are carried as int8 and
+float32 tensors in the same dict form (ops/quant.py).
 
 The Hugging Face checkpoint loader of ``sutro_tpu/engine/weights.py`` is
 not ported yet.
@@ -19,6 +22,7 @@ import torch
 
 from ..models.configs import ModelConfig
 from ..models import transformer
+from ..ops.quant import QUANT_LEAVES
 
 
 def params_from_numpy(
@@ -28,21 +32,31 @@ def params_from_numpy(
     dtype: torch.dtype = torch.bfloat16,
 ) -> Dict[str, Any]:
     """numpy parameter tree -> the port's parameter dict on ``device``
-    in ``dtype``. Raises on a missing, extra or misshapen leaf."""
+    in ``dtype`` (int8 leaves stay int8, their scales float32). Raises
+    on a missing, extra or misshapen leaf."""
     want = {
         k: {n: s[0] for n, s in v.items()} if k == "layers" else v[0]
         for k, v in transformer.param_spec(cfg).items()
     }
 
-    def leaf(name: str, x, shape) -> torch.Tensor:
-        if isinstance(x, Mapping):
-            raise NotImplementedError(
-                f"{name}: int8-quantized weights are not ported yet"
-            )
-        arr = np.array(x, dtype=np.float32)  # a writable copy
-        if arr.shape != shape:
-            raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+    def tensor(name: str, x, shape, np_dtype, t_dtype) -> torch.Tensor:
+        arr = np.array(x, dtype=np_dtype)  # a writable copy
+        if arr.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(shape)}")
+        return torch.from_numpy(arr).to(device=device, dtype=t_dtype)
+
+    def leaf(name: str, x, shape):
+        if not isinstance(x, Mapping):
+            return tensor(name, x, shape, np.float32, dtype)
+        if set(x) != {"qw", "scale"} or name.split(".")[-1] not in QUANT_LEAVES:
+            raise ValueError(f"{name}: not a quantized leaf: keys {sorted(x)}")
+        if np.asarray(x["qw"]).dtype != np.int8:
+            raise ValueError(f"{name}: qw must be int8")
+        return {
+            "qw": tensor(name + ".qw", x["qw"], shape, np.int8, torch.int8),
+            "scale": tensor(name + ".scale", x["scale"],
+                            (*shape[:-2], 1, shape[-1]), np.float32, torch.float32),
+        }
 
     if set(tree) != set(want):
         raise ValueError(

@@ -29,9 +29,17 @@ import torch.nn.functional as F
 
 from ..ops.attention import chunk_attention
 from ..ops.moe import moe_mlp
+from ..ops.quant import (
+    QUANT_LEAVES, materialize, quantize_into, quantize_weight, quantized_empty,
+)
 from .configs import ModelConfig
 
 Params = Dict[str, Any]
+
+
+def _w(lp: Dict[str, Any], name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Possibly-int8 weight leaf -> matmul-ready tensor (ops/quant.py)."""
+    return materialize(lp[name], dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -100,28 +108,46 @@ def init_params(
     generator: torch.Generator,
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
+    quantize: bool = False,
 ) -> Params:
     """Random init in the :func:`param_spec` layout. Normal draws
     (scaled by ``fan_in ** -0.5``) come from ``generator``, which must
     live on ``device``, one leading-axis slice at a time (one layer's
     ``[E, H, F]`` experts), so a full-size model never holds a float32
-    copy of a whole tensor."""
+    copy of a whole tensor.
 
-    def make(shape, init):
+    With ``quantize`` the ``QUANT_LEAVES`` come back int8
+    (ops/quant.py), each layer's slice quantized as soon as it is drawn
+    in ``dtype``, so the full-precision model is never resident; the
+    draws and the result equal ``quantize_params`` of the unquantized
+    init."""
+
+    def draw(shape, fan_in):
+        return (
+            torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+            * (fan_in ** -0.5)
+        ).to(dtype)
+
+    def make(name, shape, init):
         kind, arg = init
         if kind == "const":
             return torch.full(shape, arg, dtype=dtype, device=device)
+        if quantize and name in QUANT_LEAVES and len(shape) > 2:
+            out = quantized_empty(shape, device)
+            for i in range(shape[0]):
+                quantize_into(draw(shape[1:], arg),
+                              {"qw": out["qw"][i], "scale": out["scale"][i]})
+            return out
         out = torch.empty(shape, dtype=dtype, device=device)
         for i in range(shape[0]):
-            out[i] = torch.randn(
-                shape[1:], generator=generator, device=device,
-                dtype=torch.float32,
-            ) * (arg ** -0.5)
+            out[i] = draw(shape[1:], arg)
+        if quantize and name in QUANT_LEAVES:   # a 2-D leaf (lm_head)
+            return quantize_weight(out)
         return out
 
     return {
         k: (
-            {n: make(*s) for n, s in v.items()} if k == "layers" else make(*v)
+            {n: make(n, *s) for n, s in v.items()} if k == "layers" else make(k, *v)
         )
         for k, v in param_spec(cfg).items()
     }
@@ -219,13 +245,14 @@ def apply_rope(
 def _mlp(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     if cfg.moe_experts:
         return moe_mlp(
-            x, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+            x, lp["router"], _w(lp, "we_gate", x.dtype), _w(lp, "we_up", x.dtype),
+            _w(lp, "we_down", x.dtype),
             top_k=cfg.moe_top_k, activation=cfg.activation,
             router_b=lp.get("router_b"), bias_gate=lp.get("we_gate_b"),
             bias_up=lp.get("we_up_b"), bias_down=lp.get("we_down_b"),
         )
-    gate = x @ lp["w_gate"]
-    up = x @ lp["w_up"]
+    gate = x @ _w(lp, "w_gate", x.dtype)
+    up = x @ _w(lp, "w_up", x.dtype)
     if cfg.activation == "gelu":
         act = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
     elif cfg.activation == "swiglu_oss":
@@ -234,7 +261,7 @@ def _mlp(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         up = up.float().clamp(-7.0, 7.0).to(x.dtype) + 1.0
     else:
         act = F.silu(gate.float()).to(x.dtype)
-    return (act * up) @ lp["w_down"]
+    return (act * up) @ _w(lp, "w_down", x.dtype)
 
 
 def layer_apply(
@@ -248,6 +275,8 @@ def layer_apply(
     theta: float,
     kp_l: Optional[torch.Tensor] = None,   # this layer's K page pool
     vp_l: Optional[torch.Tensor] = None,
+    ks_l: Optional[torch.Tensor] = None,   # this layer's int8-KV scales
+    vs_l: Optional[torch.Tensor] = None,   # [NP, PS] f32
     page_table: Optional[torch.Tensor] = None,
     past_len: Optional[torch.Tensor] = None,
     wk_l: Optional[torch.Tensor] = None,   # this layer's window buffer
@@ -261,9 +290,9 @@ def layer_apply(
     B, T = h.shape[:2]
     resid = h
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps, cfg.norm_zero_centered)
-    q = x @ lp["wq"]
-    k = x @ lp["wk"]
-    v = x @ lp["wv"]
+    q = x @ _w(lp, "wq", x.dtype)
+    k = x @ _w(lp, "wk", x.dtype)
+    v = x @ _w(lp, "wv", x.dtype)
     if cfg.attn_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -282,12 +311,13 @@ def layer_apply(
         positions=positions,
         valid_len=valid_len,
         past_k_pages=kp_l, past_v_pages=vp_l,
+        past_k_scale=ks_l, past_v_scale=vs_l,
         page_table=page_table, past_len=past_len,
         window=window, sink=sink,
         win_k=wk_l, win_v=wv_l, win_len=win_len,
         pfx_groups=pfx_groups,
     )
-    attn = attn.reshape(B, T, cfg.q_size) @ lp["wo"]
+    attn = attn.reshape(B, T, cfg.q_size) @ _w(lp, "wo", h.dtype)
     if cfg.attn_bias:
         attn = attn + lp["bo"]
     if cfg.post_norms:
@@ -350,7 +380,7 @@ def head_apply(
     lm_head = params.get("lm_head")
     if lm_head is None:
         lm_head = params["embed"].T
-    return (h @ lm_head.to(h.dtype)).float(), h
+    return (h @ materialize(lm_head, h.dtype).to(h.dtype)).float(), h
 
 
 # ---------------------------------------------------------------------------
@@ -364,9 +394,11 @@ def forward(
     ids: torch.Tensor,                 # [B, T] int
     positions: torch.Tensor,           # [B, T] global positions
     valid_len: torch.Tensor,           # [B] real tokens of the chunk
-    paged_past: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    paged_past: Optional[Tuple[torch.Tensor, ...]] = None,
     # paged_past: (k_pages, v_pages, page_table), pools [L, NP, PS,
-    # KVH*Dh] (fused, engine/kvcache.py), table [B, MP] int32
+    # KVH*Dh] (fused, engine/kvcache.py), table [B, MP] int32; or with
+    # an int8 KV cache (k_pages, v_pages, k_scale, v_scale, page_table),
+    # scales [L, NP, PS] f32
     past_len: Optional[torch.Tensor] = None,   # [B] valid past tokens
     # fused-decode window buffer: (win_k [L, B, W, KVH*Dh], win_v,
     # win_len int) — K/V of window tokens not yet in the page pool
@@ -390,8 +422,10 @@ def forward(
     h = embed_tokens(cfg, params, ids)
     windows = cfg.window_array()
     thetas = rope_thetas(cfg)
-    k_pages = v_pages = page_table = None
-    if paged_past is not None:
+    k_pages = v_pages = k_scale = v_scale = page_table = None
+    if paged_past is not None and len(paged_past) == 5:
+        k_pages, v_pages, k_scale, v_scale, page_table = paged_past
+    elif paged_past is not None:
         k_pages, v_pages, page_table = paged_past
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
@@ -400,7 +434,11 @@ def forward(
         theta = thetas[layer]
         if theta not in tables:
             tables[theta] = rope_tables(positions, theta, cfg, cfg.head_dim // 2)
-        lp = {name: t[layer] for name, t in params["layers"].items()}
+        lp = {
+            name: ({n: x[layer] for n, x in t.items()} if isinstance(t, dict)
+                   else t[layer])
+            for name, t in params["layers"].items()
+        }
         kw: Dict[str, Any] = {}
         if paged_past is not None:
             kw = dict(
@@ -408,6 +446,8 @@ def forward(
                 page_table=page_table, past_len=past_len,
                 pfx_groups=pfx_groups,
             )
+            if k_scale is not None:
+                kw.update(ks_l=k_scale[layer], vs_l=v_scale[layer])
             if window_past is not None:
                 kw.update(
                     wk_l=window_past[0][layer], wv_l=window_past[1][layer],

@@ -13,6 +13,11 @@ any device:
   layer's pages gathered into a contiguous view, then the dense path
   below, exactly as the reference does (that case has no kernel there).
 
+Over an int8 pool (``past_k_scale``/``past_v_scale``) the T == 1 case
+takes the paged-decode kernel's int8 option (and, with shared-prefix
+groups, the reference's XLA carry with the scales), and T > 1
+dequantizes the gathered pages into the compute dtype.
+
 Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs
 its plain PyTorch version on a CPU tensor, so the CPU tests drive the
 same dispatch, shapes and layouts as the card.
@@ -52,6 +57,9 @@ def chunk_attention(
     # mutually exclusive with past_k/past_v
     past_k_pages: Optional[torch.Tensor] = None,
     past_v_pages: Optional[torch.Tensor] = None,
+    # int8 KV mode: per-token dequantization scales of this layer's pages
+    past_k_scale: Optional[torch.Tensor] = None,  # [NP, PS] f32
+    past_v_scale: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,  # [B, MP] int32
     window: int = 0,                        # 0 => full attention
     sink: Optional[torch.Tensor] = None,    # [NH] attention-sink logits
@@ -78,18 +86,20 @@ def chunk_attention(
             if pfx_groups:
                 carry = _prefix_carry(
                     q[:, 0], past_k_pages, past_v_pages, pfx_groups,
-                    past_len + int(win_len), window,
+                    past_len + int(win_len), window, past_k_scale, past_v_scale,
                 )
             out = paged_decode_attention(
                 q[:, 0], past_k_pages, past_v_pages, page_table, past_len,
                 k[:, 0], v[:, 0], window, sink,
-                win_k=win_k, win_v=win_v, win_len=win_len, **carry,
+                win_k=win_k, win_v=win_v, win_len=win_len,
+                k_scale=past_k_scale, v_scale=past_v_scale, **carry,
             )
             return out[:, None]
         from ..engine.kvcache import gather_kv_layer
 
         past_k, past_v = gather_kv_layer(
-            past_k_pages, past_v_pages, page_table, KVH
+            past_k_pages, past_v_pages, page_table, KVH,
+            past_k_scale, past_v_scale, out_dtype=q.dtype,
         )
     elif past_k is None:
         # no past: query/key positions are [0, T) (the runner's prefill
@@ -142,17 +152,20 @@ def chunk_attention(
     return out.reshape(B, T, NH, Dh).to(q.dtype)
 
 
-def _prefix_carry(q, k_pages, v_pages, pfx_groups, q_pos, window) -> dict:
+def _prefix_carry(
+    q, k_pages, v_pages, pfx_groups, q_pos, window, k_scale=None, v_scale=None,
+) -> dict:
     """The paged-decode kernel's carry operands for ``pfx_groups``: one
     carry per group, combined by max/sum/sum (member sets are disjoint
     and a non-member's carry is the cold (-1e30, 0, 0), so the
     combination is exact), and ``pfx_cnt`` = the shared pages each row
-    skips."""
+    skips. Over an int8 pool each carry is the reference's XLA function
+    with the scales (ops/prefix_carry.py): no TPU kernel computes it."""
     PS = k_pages.shape[1]
     m0 = l0 = acc0 = pfx_cnt = None
     for pages, pfx_len in pfx_groups:
         mg, lg, ag = prefix_attention_carry(
-            q, k_pages, v_pages, pages, pfx_len, q_pos, window
+            q, k_pages, v_pages, pages, pfx_len, q_pos, window, k_scale, v_scale
         )
         cnt = torch.div(pfx_len, PS, rounding_mode="floor")
         if m0 is None:

@@ -9,8 +9,15 @@ current token (at ``past_len + win_len``). Per-layer sliding window;
 the attention sink joins the softmax denominator only.
 
 The pool carries the fused ``[NP, PS, KVH*Dh]`` layout of
-engine/kvcache.py. The reference's int8 pages are not ported yet
-(ROADMAP.md).
+engine/kvcache.py.
+
+int8-page option (the reference's ``k_scale``/``v_scale``): pages are
+int8 with per-token float32 scales ``[NP, PS]``; ``q``, the current
+token, the window slots and the output stay bfloat16. As in the
+reference kernel, the K scale multiplies each page token's score and
+the V scale multiplies ``p`` in the value sum only (the normalizer sums
+the unscaled ``p``). The plain version dequantizes the gathered pages
+instead; both compute the same function.
 
 Carry option (the reference's shared-prefix mode): with ``pfx_cnt``
 ``[B]``, row ``b`` skips its first ``pfx_cnt[b]`` pages and starts its
@@ -22,7 +29,8 @@ denominator.
 
 On a CUDA tensor the wrapper launches ``csrc/paged_decode.cu`` or
 raises; on a CPU tensor it runs :func:`paged_decode_plain`. Launches
-with the carry count on ``CARRY``, the others on ``KERNEL``.
+over int8 pages count on ``INT8`` (with or without the carry), other
+launches with the carry on ``CARRY``, the rest on ``KERNEL``.
 """
 
 from __future__ import annotations
@@ -49,6 +57,11 @@ CARRY = CudaKernel(
     replaces="sutro_tpu/ops/pallas_paged.py:713 (pfx_cnt/m0/l0/acc0, :734-743)",
     source="paged_decode",
 )
+INT8 = CudaKernel(
+    "paged_decode_int8", "paged_decode_int8", [_P] * 17 + [_I] * 9 + [ctypes.c_float, _P],
+    replaces="sutro_tpu/ops/pallas_paged.py:713 (k_scale/v_scale, :729-733)",
+    source="paged_decode",
+)
 
 
 def paged_decode_plain(
@@ -68,9 +81,12 @@ def paged_decode_plain(
     m0: Optional[torch.Tensor] = None,       # [B, NH] f32 carry
     l0: Optional[torch.Tensor] = None,
     acc0: Optional[torch.Tensor] = None,     # [B, NH, Dh] f32
+    k_scale: Optional[torch.Tensor] = None,  # [NP, PS] f32 (int8 pages)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Gather version of the kernel: one online-softmax step from the
-    carry (the cold carry without one) over every key, in float32."""
+    carry (the cold carry without one) over every key, in float32. int8
+    pages are dequantized as they are gathered."""
     B, NH, Dh = q.shape
     KVH = k_cur.shape[1]
     G = NH // KVH
@@ -79,8 +95,12 @@ def paged_decode_plain(
     ctx = MP * PS
     dev = q.device
     idx = page_table.long().reshape(-1)
-    keys = [k_pages[idx].reshape(B, ctx, KVH, Dh)]
-    vals = [v_pages[idx].reshape(B, ctx, KVH, Dh)]
+    kp, vp = k_pages[idx].float(), v_pages[idx].float()
+    if k_scale is not None:
+        kp = kp * k_scale[idx].float()[..., None]
+        vp = vp * v_scale[idx].float()[..., None]
+    keys = [kp.reshape(B, ctx, KVH, Dh)]
+    vals = [vp.reshape(B, ctx, KVH, Dh)]
     tok = torch.arange(ctx, device=dev)
     past = past_len.long()
     pos = past + int(win_len)                           # [B] query position
@@ -148,6 +168,8 @@ def paged_decode_attention(
     m0: Optional[torch.Tensor] = None,       # [B, NH] f32 injected carry
     l0: Optional[torch.Tensor] = None,
     acc0: Optional[torch.Tensor] = None,     # [B, NH, Dh] f32
+    k_scale: Optional[torch.Tensor] = None,  # [NP, PS] f32: int8 pages
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns ``[B, NH, Dh]`` attention outputs for one decode step.
 
@@ -158,21 +180,34 @@ def paged_decode_attention(
     carry = pfx_cnt is not None
     if carry and (m0 is None or l0 is None or acc0 is None):
         raise ValueError("paged_decode_attention: pfx_cnt needs m0, l0 and acc0")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("paged_decode_attention: k_scale and v_scale go together")
     if not q.is_cuda:
         return paged_decode_plain(
             q, k_pages, v_pages, page_table, past_len, k_cur, v_cur,
             window, sink, win_k, win_v, win_len, pfx_cnt, m0, l0, acc0,
+            k_scale, v_scale,
         )
     B, NH, Dh = q.shape
     NP, PS, KD = k_pages.shape
     KVH = k_cur.shape[1]
     MP = page_table.shape[1]
     W = 0 if win_k is None else win_k.shape[1]
-    bf16 = [q, k_pages, v_pages, k_cur, v_cur] + (
-        [win_k, win_v] if W else []
-    )
-    if any(t.dtype != torch.bfloat16 for t in bf16):
-        raise TypeError("paged_decode_attention: the kernel takes bfloat16 q/k/v")
+    bf16 = [q, k_cur, v_cur] + ([win_k, win_v] if W else [])
+    page_dtype = torch.int8 if quantized else torch.bfloat16
+    if any(t.dtype != torch.bfloat16 for t in bf16) or any(
+        t.dtype != page_dtype for t in (k_pages, v_pages)
+    ):
+        raise TypeError(
+            "paged_decode_attention: the kernel takes bfloat16 q/k/v and "
+            "bfloat16 pages, or int8 pages with k_scale/v_scale"
+        )
+    if quantized and (
+        any(t.dtype != torch.float32 for t in (k_scale, v_scale))
+        or tuple(k_scale.shape) != (NP, PS) or v_scale.shape != k_scale.shape
+    ):
+        raise ValueError("paged_decode_attention: k_scale/v_scale must be [NP, PS] float32")
     if page_table.dtype != torch.int32 or past_len.dtype != torch.int32:
         raise TypeError("paged_decode_attention: page_table/past_len must be int32")
     if Dh not in HEAD_DIMS or NH % KVH or (NH // KVH) * Dh > MAX_GROUP_WIDTH:
@@ -210,20 +245,28 @@ def paged_decode_attention(
         [win_k, win_v] if W else []
     ) + ([sink] if sink is not None else []) + (
         [pfx_cnt, m0, l0, acc0] if carry else []
-    )
+    ) + ([k_scale, v_scale] if quantized else [])
     if any(t.device != q.device for t in args):
         raise ValueError("paged_decode_attention: tensors on different devices")
     if not all(t.is_contiguous() for t in args):
         raise ValueError("paged_decode_attention: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
+        raise ValueError("paged_decode_attention: the pools must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0:
         return out
-    (CARRY if carry else KERNEL).launch(
+    common = (
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(page_table), ptr(past_len),
         ptr(k_cur), ptr(v_cur), ptr(win_k if W else None),
         ptr(win_v if W else None), ptr(sink), ptr(pfx_cnt), ptr(m0),
-        ptr(l0), ptr(acc0), ptr(out),
-        B, NH, KVH, Dh, PS, MP, W, int(win_len), int(window),
+        ptr(l0), ptr(acc0),
+    )
+    tail = (
+        ptr(out), B, NH, KVH, Dh, PS, MP, W, int(win_len), int(window),
         ctypes.c_float(Dh ** -0.5), stream_handle(q.device),
     )
+    if quantized:
+        INT8.launch(*common, ptr(k_scale), ptr(v_scale), *tail)
+    else:
+        (CARRY if carry else KERNEL).launch(*common, *tail)
     return out

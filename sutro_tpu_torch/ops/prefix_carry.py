@@ -18,13 +18,19 @@ n]`` in lane block ``n // G`` and zeros elsewhere.
 
 On a CUDA tensor the wrapper launches ``csrc/prefix_carry.cu`` or
 raises; on a CPU tensor it runs :func:`prefix_attention_carry_plain`.
+
+Over an int8 pool (``k_scale``/``v_scale``) the carry is always the
+plain version with the scales, on any device: that is the reference's
+own routing (its XLA ``prefix_attention_carry(k_scale=...)``), since its
+Pallas carry is bf16-only (``prefix_carry_supported``). No TPU kernel
+computes an int8 carry; a kernel for it is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,16 +60,23 @@ def prefix_attention_carry_plain(
     pfx_len: torch.Tensor,    # [B] int32
     q_pos: torch.Tensor,      # [B] int32
     window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,  # [NP, PS] f32 (int8 pages)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Carry:
-    """Gather version of the kernel, in float32."""
+    """Gather version of the kernel, in float32; int8 pages are
+    dequantized as they are gathered."""
     B, NH, Dh = q.shape
     NP, PS, KD = k_pages.shape
     KVH = KD // Dh
     G = NH // KVH
     Lp = pfx_pages.shape[0] * PS
     idx = pfx_pages.long()
-    kp = k_pages[idx].float().reshape(Lp, KVH, Dh)
-    vp = v_pages[idx].float().reshape(Lp, KVH, Dh)
+    kp, vp = k_pages[idx].float(), v_pages[idx].float()
+    if k_scale is not None:
+        kp = kp * k_scale[idx].float()[..., None]
+        vp = vp * v_scale[idx].float()[..., None]
+    kp = kp.reshape(Lp, KVH, Dh)
+    vp = vp.reshape(Lp, KVH, Dh)
     qg = q.float().reshape(B, KVH, G, Dh)
     s = torch.einsum("bkgd,lkd->bkgl", qg, kp) * Dh ** -0.5
     t = torch.arange(Lp, device=q.device)
@@ -96,11 +109,14 @@ def prefix_attention_carry(
     pfx_len: torch.Tensor,    # [B] int32 prefix tokens per row (0: none)
     q_pos: torch.Tensor,      # [B] int32 each query's position
     window: int = 0,          # 0 => full attention
+    k_scale: Optional[torch.Tensor] = None,  # [NP, PS] f32: int8 pages
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Carry:
     """Returns ``(m0 [B, NH], l0 [B, NH], acc0 [B, NH, Dh])`` float32."""
-    if not q.is_cuda:
+    if not q.is_cuda or k_scale is not None:
+        # an int8 carry is the reference's XLA function on every device
         return prefix_attention_carry_plain(
-            q, k_pages, v_pages, pfx_pages, pfx_len, q_pos, window
+            q, k_pages, v_pages, pfx_pages, pfx_len, q_pos, window, k_scale, v_scale
         )
     B, NH, Dh = q.shape
     NP, PS, KD = k_pages.shape

@@ -146,9 +146,7 @@ def test_runner_requires_cuda_by_default(monkeypatch):
         t_runner.ModelRunner(MCFG, EngineConfig(**ENGINE))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("quantize", "int8"), ("kv_quantize", "int8"), ("tp", 2),
-])
+@pytest.mark.parametrize("field,value", [("tp", 2), ("ep", 2), ("pp", 2)])
 def test_runner_refuses_unported_options(shared_params, field, value):
     _, tparams = shared_params
     with pytest.raises(NotImplementedError):

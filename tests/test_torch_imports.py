@@ -29,6 +29,7 @@ MODULES = (
     "sutro_tpu_torch.ops.prefix_carry",
     "sutro_tpu_torch.ops.grouped_matmul",
     "sutro_tpu_torch.ops.moe",
+    "sutro_tpu_torch.ops.quant",
     "sutro_tpu_torch.ops.attention",
     "sutro_tpu_torch.models.transformer",
     "sutro_tpu_torch.engine.runner",
@@ -78,6 +79,15 @@ def test_no_file_of_the_port_imports_jax(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in FORBIDDEN, f"{path}: imports {n}"
+
+
+def test_scan_covers_every_module():
+    """The AST scan reads every named module's file, the int8 path's
+    ``ops/quant.py`` among them."""
+    files = set(_port_files())
+    for name in MODULES:
+        assert ROOT.joinpath(*name.split(".")).with_suffix(".py") in files, name
+    assert PORT / "ops" / "quant.py" in files
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
