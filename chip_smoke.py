@@ -11,7 +11,10 @@ Phases, in order; any failure raises and exits non-zero:
 2. build: every CUDA kernel of the engine's main paths is compiled from
    ``sutro_tpu_torch/csrc/`` (five sources; the paged decode's bf16 and
    int8 entry points are one) with ``nvcc`` (one process per source,
-   all started together);
+   all started together); the compiler's register, shared-memory and
+   spill report, and for flash prefill and paged decode the count of
+   tensor-core (``HMMA``/``HGMMA``) and ``cp.async`` (``LDGSTS``)
+   instructions in each function's SASS, are printed;
 3. kernels: each kernel is held against its plain PyTorch version on
    random bfloat16 inputs, and timed beside its plain version, a
    one-call PyTorch yardstick where one exists and its bound (the least
@@ -25,7 +28,11 @@ Phases, in order; any failure raises and exits non-zero:
    the paged decode's int8-page option at Qwen3-32B shapes (B=64,
    NH=64, KVH=8), with and without the carry, on the same quantized
    values as its plain version, the yardstick being SDPA over K/V
-   gathered and dequantized to bf16 beforehand (twice the bytes);
+   gathered and dequantized to bf16 beforehand (twice the bytes); the
+   bf16 and int8 paged decode also at long context (64 rows with pasts
+   of 4,096-8,192, 130 pages a row) at Qwen3-8B's and Qwen3-32B's head
+   counts, and flash prefill also at NH=64 (8 x 500) and at T=2,048
+   (4 rows, NH=32 over KVH=4), each beside its bound and SDPA;
 4. serve 1: ``ContinuousBatcher.run`` over a ``ModelRunner`` for
    ``qwen3-8b`` at full width and depth with random weights from a
    seed: 96 requests, greedy, top-p and row-seeded rows. Every row must
@@ -63,7 +70,8 @@ The second-to-last lines are a JSON ``{"kernels": [...]}`` record and
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX or of the JAX package
 is imported. Exits with 2 and prints no result when no CUDA device is
-available.
+available. ``python3 chip_smoke.py --kernels-only`` stops after phase 3
+(and prints neither record).
 """
 
 from __future__ import annotations
@@ -147,16 +155,19 @@ KD = KVH * DH
 L = 36                       # qwen3-8b depth (page-write shapes)
 
 
-def _decode_inputs(rng, torch, dev, nh=NH):
-    """Ragged rows: past 1..2000, some past=0 rows, page-0 padding rows;
-    ``nh`` query heads over KVH=8 KV heads."""
-    past = rng.integers(1, 2001, B)
-    past[::9] = 0                        # rows at their first decode step
-    pad = np.zeros(B, bool)
-    pad[5::16] = True                    # inactive slots: zero table, past 0
-    past[pad] = 0
-    table = np.zeros((B, MP), np.int32)
-    perm = rng.permutation(np.arange(1, NP))
+def _decode_inputs(rng, torch, dev, nh=NH, mp=MP, past_range=(1, 2001), ragged=True):
+    """``nh`` query heads over KVH=8 KV heads, ``mp`` pages per row.
+    Ragged rows: past in ``past_range``, some past=0 rows, page-0
+    padding rows; with ``ragged`` false every row is in ``past_range``."""
+    past = rng.integers(*past_range, B)
+    if ragged:
+        past[::9] = 0                    # rows at their first decode step
+        pad = np.zeros(B, bool)
+        pad[5::16] = True                # inactive slots: zero table, past 0
+        past[pad] = 0
+    n_pool = 1 + B * mp
+    table = np.zeros((B, mp), np.int32)
+    perm = rng.permutation(np.arange(1, n_pool))
     nxt = 0
     for b in range(B):
         n = -(-int(past[b]) // PS)
@@ -166,8 +177,8 @@ def _decode_inputs(rng, torch, dev, nh=NH):
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     return dict(
         q=torch.randn((B, nh, DH), generator=g, **bf),
-        k_pages=torch.randn((NP, PS, KD), generator=g, **bf),
-        v_pages=torch.randn((NP, PS, KD), generator=g, **bf),
+        k_pages=torch.randn((n_pool, PS, KD), generator=g, **bf),
+        v_pages=torch.randn((n_pool, PS, KD), generator=g, **bf),
         page_table=torch.as_tensor(table, device=dev),
         past_len=torch.as_tensor(past.astype(np.int32), device=dev),
         k_cur=torch.randn((B, KVH, DH), generator=g, **bf),
@@ -186,7 +197,7 @@ def _sdpa_over_gathered(torch, x, k_pages, v_pages, win_len):
 
     past = x["past_len"].long()
     dev = past.device
-    ctx = MP * PS
+    ctx = x["page_table"].shape[1] * PS
     W = x["win_k"].shape[1]
     idx = x["page_table"].long().reshape(-1)
     kg = k_pages[idx].reshape(B, ctx, KVH, DH)
@@ -202,6 +213,67 @@ def _sdpa_over_gathered(torch, x, k_pages, v_pages, win_len):
     qs = x["q"][:, :, None, :]
     return lambda: F.scaled_dot_product_attention(qs, keys, vals, attn_mask=mask,
                                                   enable_gqa=True)
+
+
+def _decode_bound(x, nh, win_len, int8=False):
+    """The least time of a paged decode call: every live token's K and V
+    row once (int8 pages: 1 byte an element and two f32 scales a token;
+    the window slots and the current token in bf16), q in, out back, the
+    table and lengths; 4 flops per (query head, key, Dh)."""
+    n_rows, mp = x["page_table"].shape
+    page_tokens = int(x["past_len"].long().sum())
+    other = n_rows * (win_len + 1)
+    if int8:
+        kv = 2 * page_tokens * (KD + 4) + 2 * other * KD * 2
+    else:
+        kv = 2 * (page_tokens + other) * KD * 2
+    nbytes = kv + 2 * n_rows * nh * DH * 2 + n_rows * mp * 4 + n_rows * 4
+    return bound_ms(nbytes, 4 * (page_tokens + other) * nh * DH)
+
+
+def _dequantized_pools(torch, x):
+    """bf16 pools holding the int8 pages' dequantized values on the
+    table's pages (the SDPA yardstick's input; not timed)."""
+    idx = x["page_table"].long().reshape(-1)
+    out = []
+    for name in ("k", "v"):
+        pool = torch.zeros(x[f"{name}_pages"].shape, dtype=torch.bfloat16,
+                           device=idx.device)
+        pool[idx] = (x[f"{name}_pages"][idx].float()
+                     * x[f"{name}_scale"][idx][..., None]).to(torch.bfloat16)
+        out.append(pool)
+    return out
+
+
+LONG_MP = 130   # 8,320 tokens a row: pasts of 4,096-8,192 and the window
+
+
+def paged_decode_long(rng, torch, dev, nh, int8) -> dict:
+    """The paged decode at long context, where split-K matters: 64 rows
+    with pasts of 4,096-8,192 over a table of 130 pages, ``nh`` query
+    heads over 8 KV heads, inside a fused window (4 slots); held against
+    the plain version and timed beside its bound and the SDPA yardstick
+    (over K/V gathered, and for int8 pages dequantized, beforehand)."""
+    from sutro_tpu_torch.ops import paged_decode as pd
+
+    x = _decode_inputs(rng, torch, dev, nh=nh, mp=LONG_MP, past_range=(4096, 8193),
+                       ragged=False)
+    scales = {}
+    if int8:
+        x = _int8_pools(torch, x)
+        scales = dict(k_scale=x["k_scale"], v_scale=x["v_scale"])
+    base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
+            x["k_cur"], x["v_cur"])
+    kw = dict(window=0, win_k=x["win_k"], win_v=x["win_v"], win_len=4, **scales)
+    err = check_close(f"paged_decode long context nh={nh} int8={int8}",
+                      pd.paged_decode_attention(*base, **kw), pd.paged_decode_plain(*base, **kw))
+    ms = time_ms(lambda: pd.paged_decode_attention(*base, **kw))
+    pools = _dequantized_pools(torch, x) if int8 else (x["k_pages"], x["v_pages"])
+    library_ms = time_ms(_sdpa_over_gathered(torch, x, *pools, 4))
+    bms, by = _decode_bound(x, nh, 4, int8)
+    del pools, x
+    return dict(ms=ms, library_ms=library_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                nh=nh, past="4096-8192")
 
 
 def _rec(kernel, **kw) -> dict:
@@ -233,16 +305,16 @@ def kernel_paged_decode(rng, torch, dev) -> dict:
     plain_ms = time_ms(lambda: pd.paged_decode_plain(*base, **main), iters=5)
     # yardstick: SDPA over K/V already gathered into [B, KVH, S, Dh]
     # (the gather itself is not timed), with a key-validity mask
-    past = x["past_len"].long()
     library_ms = time_ms(_sdpa_over_gathered(torch, x, x["k_pages"], x["v_pages"], 4))
-    # bound: every live token's K and V row once, q in, out back
-    live = int(past.sum()) + B * (4 + 1)
-    nbytes = 2 * live * KD * 2 + 2 * B * NH * DH * 2 + B * MP * 4 + B * 4
-    flops = 4 * live * NH * DH  # per head: 2 for q.k, 2 for p.v
-    bms, by = bound_ms(nbytes, flops)
-    return _rec(pd.KERNEL, max_abs_err=max(errs.values()), ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
-                cases=errs)
+    bms, by = _decode_bound(x, NH, 4)
+    del x, base
+    torch.cuda.empty_cache()
+    timed = {f"long_context_nh{nh}": paged_decode_long(rng, torch, dev, nh, False)
+             for nh in (NH, Q32_NH)}
+    return _rec(pd.KERNEL, max_abs_err=max([*errs.values(),
+                                            *(t["max_abs_err"] for t in timed.values())]),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                cases=errs, timed_cases=timed)
 
 
 def kernel_kv_write(rng, torch, dev) -> dict:
@@ -321,10 +393,24 @@ def kernel_flash_prefill(rng, torch, dev) -> dict:
     bf = dict(dtype=torch.bfloat16, device=dev)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
 
-    def inputs(Bc, T):
-        return (torch.randn((Bc, T, NH, DH), generator=g, **bf),
-                torch.randn((Bc, T, KVH, DH), generator=g, **bf),
-                torch.randn((Bc, T, KVH, DH), generator=g, **bf))
+    def inputs(Bc, T, nh=NH, kvh=KVH):
+        return (torch.randn((Bc, T, nh, DH), generator=g, **bf),
+                torch.randn((Bc, T, kvh, DH), generator=g, **bf),
+                torch.randn((Bc, T, kvh, DH), generator=g, **bf))
+
+    def timed(args):
+        """The kernel's time beside SDPA's (causal, same inputs) and the
+        bound: q, k, v in and out back once; 4 flops per causal (query,
+        key) pair, head and column."""
+        q, k, v = (t.transpose(1, 2).contiguous() for t in args)
+        Bc, T, nh = args[0].shape[:3]
+        kvh = args[1].shape[2]
+        nbytes = 2 * Bc * T * nh * DH * 2 + 2 * Bc * T * kvh * DH * 2
+        bms, by = bound_ms(nbytes, 4 * Bc * T * (T + 1) / 2 * nh * DH)
+        return dict(ms=time_ms(lambda: fp.flash_prefill(*args)),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)),
+                    bound_ms=bms, bound_by=by, shape=[Bc, T, nh, kvh, DH])
 
     sink = torch.randn((NH,), generator=g, device=dev)
     errs = {}
@@ -338,19 +424,20 @@ def kernel_flash_prefill(rng, torch, dev) -> dict:
         want = fp.flash_prefill_plain(*args, **kw)
         torch.cuda.synchronize()
         errs[name] = check_close(f"flash_prefill[{name}]", got, want)
-    ms = time_ms(lambda: fp.flash_prefill(*main))
     plain_ms = time_ms(lambda: fp.flash_prefill_plain(*main), iters=5)
-    q, k, v = (t.transpose(1, 2).contiguous() for t in main)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    Bc, T = main[0].shape[:2]
-    pairs = Bc * T * (T + 1) / 2
-    flops = 4 * pairs * NH * DH
-    nbytes = 2 * Bc * T * NH * DH * 2 + 2 * Bc * T * KVH * DH * 2
-    bms, by = bound_ms(nbytes, flops)
-    return _rec(fp.KERNEL, max_abs_err=max(errs.values()), ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
-                cases=errs)
+    m = timed(main)
+    # qwen3-32b's heads (NH=64 over 8) at the serve's 8 x 500, and serve
+    # 2's prefill_chunk of 2,048 tokens at qwen3-30b-a3b's heads (32 over 4)
+    more = {"T500_nh64": inputs(8, 500, nh=Q32_NH), "T2048_nh32_kvh4": inputs(4, 2048, kvh=QKVH)}
+    timed_cases = {}
+    for name, args in more.items():
+        errs[name] = check_close(f"flash_prefill[{name}]", fp.flash_prefill(*args),
+                                 fp.flash_prefill_plain(*args))
+        timed_cases[name] = timed(args)
+    del more
+    return _rec(fp.KERNEL, max_abs_err=max(errs.values()), ms=m["ms"],
+                plain_ms=plain_ms, bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                library_ms=m["library_ms"], cases=errs, timed_cases=timed_cases)
 
 
 # Qwen3-30B-A3B serve shapes (serve 2): B=64 slots of 24 pages, a
@@ -555,25 +642,18 @@ def kernel_paged_decode_int8(rng, torch, dev) -> dict:
     # yardstick: SDPA over K/V gathered and dequantized to bf16 outside
     # the timed region; it reads 2 bytes per K/V element, twice the
     # kernel's 1
-    idx = x["page_table"].long().reshape(-1)
-    deq = {}
-    for name in ("k", "v"):
-        pool = torch.zeros((NP, PS, KD), dtype=torch.bfloat16, device=dev)
-        pool[idx] = (x[f"{name}_pages"][idx].float()
-                     * x[f"{name}_scale"][idx][..., None]).to(torch.bfloat16)
-        deq[name] = pool
-    library_ms = time_ms(_sdpa_over_gathered(torch, x, deq["k"], deq["v"], 4))
+    deq = _dequantized_pools(torch, x)
+    library_ms = time_ms(_sdpa_over_gathered(torch, x, *deq, 4))
     del deq
-    # bound: every live token's int8 K and V row and its two scales
-    # once, the window slots and current token in bf16, q in, out back
-    past = x["past_len"].long()
-    live_pages = int(past.sum())
-    live = live_pages + B * (4 + 1)
-    nbytes = (2 * live_pages * (KD + 4) + 2 * B * (4 + 1) * KD * 2
-              + 2 * B * Q32_NH * DH * 2 + B * MP * 4 + B * 4)
-    bms, by = bound_ms(nbytes, 4 * live * Q32_NH * DH)
-    return _rec(pd.INT8, max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=library_ms, cases=errs,
+    bms, by = _decode_bound(x, Q32_NH, 4, int8=True)
+    del x, base
+    torch.cuda.empty_cache()
+    timed = {f"long_context_nh{nh}": paged_decode_long(rng, torch, dev, nh, True)
+             for nh in (NH, Q32_NH)}
+    return _rec(pd.INT8, max_abs_err=max([*errs.values(),
+                                          *(t["max_abs_err"] for t in timed.values())]),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                cases=errs, timed_cases=timed,
                 library="SDPA over K/V gathered and dequantized to bf16 beforehand "
                         "(reads 2x the kernel's K/V bytes)")
 
@@ -1188,6 +1268,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"build[{name}]: {line.strip()}", flush=True)
     print(f"build: {len(logs)} sources compiled in {time.monotonic() - t0:.1f}s", flush=True)
+    for k in (flash_prefill.KERNEL, paged_decode.KERNEL):   # the two redesigned kernels
+        for fn, n in cuda_build.sass_counts(k).items():
+            print(f"sass[{k.source.name}]: {fn}: HMMA/HGMMA={n['mma']} LDGSTS={n['cp_async']}",
+                  flush=True)
 
     records = []
     rng = np.random.default_rng(1234)
@@ -1204,6 +1288,9 @@ def main() -> int:
                   f"({rec['bound_by']}) max_abs_err={rec['max_abs_err']:.3e} "
                   f"cases={json.dumps(rec['cases'])} {json.dumps(extra)}", flush=True)
             records.append(rec)
+    if "--kernels-only" in sys.argv[1:]:
+        print(f"card: {card}")
+        return 0
 
     served = {"qwen3-8b": serve(torch, dense_path, dev)}
     print(f"serve: card={card} prefill_tok_s={served['qwen3-8b']['prefill_tok_s']:.1f} "
@@ -1238,6 +1325,7 @@ def main() -> int:
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            **({"timed_cases": rec["timed_cases"]} if "timed_cases" in rec else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

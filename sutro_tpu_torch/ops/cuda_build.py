@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``sutro_tpu_torch/csrc/`` with a
-plain C interface. It is compiled with ``nvcc`` for ``sm_90a`` (Hopper)
+plain C interface (the attention kernels share the warp-level helpers of
+``csrc/sm90_mma.cuh``). It is compiled with ``nvcc`` for ``sm_90a`` (Hopper)
 into a shared library under ``csrc/build/`` (listed in ``.gitignore``)
 at first use, and loaded with ``ctypes``. The library's file name
 carries a hash of its source and flags, so an edited source is rebuilt
@@ -78,8 +79,10 @@ class CudaKernel:
         return CSRC / f"{self._source}.cu"
 
     def library_path(self) -> Path:
+        # the shared headers (csrc/*.cuh) are part of every source
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:12]
         return BUILD_DIR / f"lib{self._source}-{digest}.so"
 
@@ -141,6 +144,28 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
     if failed:
         raise RuntimeError(failed)
     return logs
+
+
+def sass_counts(kernel: CudaKernel) -> Dict[str, Dict[str, int]]:
+    """``{function: {"mma": n, "cp_async": n}}`` for the kernel's built
+    library: its tensor-core instructions (``HMMA``/``HGMMA``) and its
+    asynchronous global-to-shared copies (``LDGSTS``) as ``cuobjdump
+    -sass`` lists them."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(kernel.library_path())],
+        check=True, capture_output=True, text=True,
+    ).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {"mma": 0, "cp_async": 0}
+        elif fn is not None:
+            counts[fn]["mma"] += ("HMMA" in line) or ("HGMMA" in line)
+            counts[fn]["cp_async"] += "LDGSTS" in line
+    return counts
 
 
 def stream_handle(device) -> ctypes.c_void_p:
