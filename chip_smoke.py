@@ -10,11 +10,12 @@ Phases, in order; any failure raises and exits non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the engine's main paths is compiled from
    ``sutro_tpu_torch/csrc/`` (five sources; the paged decode's bf16 and
-   int8 entry points are one) with ``nvcc`` (one process per source,
-   all started together); the compiler's register, shared-memory and
-   spill report, and for flash prefill and paged decode the count of
-   tensor-core (``HMMA``/``HGMMA``) and ``cp.async`` (``LDGSTS``)
-   instructions in each function's SASS, are printed;
+   int8 entry points are one) with ``nvcc`` (one process per source, all started together); the
+   compiler's register, shared-memory and spill report, and for the
+   four redesigned kernels (flash prefill, paged decode, prefix carry,
+   grouped GEMM) the count of tensor-core (``HMMA``/``HGMMA``),
+   ``cp.async`` (``LDGSTS``) and TMA (``UTMALDG``) instructions in each
+   function's SASS, are printed;
 3. kernels: each kernel is held against its plain PyTorch version on
    random bfloat16 inputs, and timed beside its plain version, a
    one-call PyTorch yardstick where one exists and its bound (the least
@@ -22,9 +23,13 @@ Phases, in order; any failure raises and exits non-zero:
    prefill at Qwen3-8B shapes (NH=32, KVH=8, Dh=128, PS=64, B=64); the
    prefix carry and the paged decode with the carry at Qwen3-30B-A3B
    shapes (B=64, NH=32, KVH=4, 1,024-token shared prefix), the carry's
-   yardstick being the memory-efficient SDPA with its log-sum-exp; the
-   grouped GEMM at Qwen3-30B-A3B expert shapes (E=128, H=2048, F=768),
-   including an lhs with rows past its last group, which must be zero;
+   yardstick being the memory-efficient SDPA with its log-sum-exp, the
+   carry also timed at a 4,096-token template, with its pages cold
+   (rotated past the L2) and at forced split counts; the grouped GEMM at
+   Qwen3-30B-A3B expert shapes (E=128, H=2048, F=768; gate/up and down)
+   from M = 24 to 32,768 (decode steps over 128 and over 21 experts,
+   prefills) beside ``torch._grouped_mm``, including an lhs with rows
+   past its last group, which must be zero;
    the paged decode's int8-page option at Qwen3-32B shapes (B=64,
    NH=64, KVH=8), with and without the carry, on the same quantized
    values as its plain version, the yardstick being SDPA over K/V
@@ -45,13 +50,14 @@ Phases, in order; any failure raises and exits non-zero:
    ``prefix_split=True``: 96 requests sharing a 1,024-token template.
    Every row must finish, the grouped GEMM, the prefix carry, the
    carry-mode paged decode, the page write and flash prefill must have
-   launched during this run, both decode paths must have run with
-   prefix groups, prefill logits of three sets of 4 rows must match a
-   cache-free forward through the plain attention and the plain grouped
-   GEMM, a decode step of two sets of 8 rows over the shared pages must
-   give the same layer-0 attention output (atol = rtol of the kernel
-   phase) and the same logits with and without the prefix groups, and
-   a fused window with the groups must not wait for the card
+   launched during this run,
+   both decode paths must have run with prefix groups, prefill logits
+   of three sets of 4 rows must match a cache-free forward through the
+   plain attention and the plain grouped GEMM, a decode step of two
+   sets of 8 rows over the shared pages must give the same layer-0
+   attention output (atol = rtol of the kernel phase) and the same
+   logits with and without the prefix groups, and a fused window with
+   the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
 6. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
@@ -71,12 +77,17 @@ the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX or of the JAX package
 is imported. Exits with 2 and prints no result when no CUDA device is
 available. ``python3 chip_smoke.py --kernels-only`` stops after phase 3
-(and prints neither record).
+(and prints neither record). ``python3 chip_smoke.py --pair-timing
+[--package DIR]`` only times the prefix carry and the grouped GEMM
+through their wrappers and prints one JSON line; with ``--package`` the
+``sutro_tpu_torch`` under DIR (a parent commit's ``git archive``) is
+timed by the same code, so parent and change compare in one call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -94,6 +105,7 @@ BF16_FLOPS_PER_S = 989e12
 ATOL = RTOL = 2e-2  # bf16 output rounding of an f32-accumulated kernel
 REL_L2 = 5e-2       # logits of a bf16 model against a plain-version forward
 SLEEP_CYCLES = 40_000_000  # ~20 ms of device sleep before a timed run
+L2_BYTES = 50e6            # H100 L2 cache: inputs rotated past twice this are cold
 ALPHABET = np.array(list("abcdefghijklmnopqrstuvwxyz ,.;:!?"))
 
 
@@ -124,6 +136,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (its wrapper, argument checks
+    and launch) while the device sleeps, so that no call waits for it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -449,25 +477,26 @@ N_PFX = 16
 GE, GH, GF, TOPK = 128, 2048, 768, 8
 
 
-def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP):
+def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP, n_pfx=N_PFX):
     """Rows 0..63 of a templated batch: members' tables start with the
-    16 shared pages, every 8th row is outside the group (a short
-    untemplated row, so that, as in the serve, no row walks more than
-    ~320 tokens of its own); each member has decoded into its own pages
-    past the template and its suffix. Qwen3-30B-A3B's heads and pages
-    unless ``nh``/``kvh``/``mp`` say otherwise."""
+    ``n_pfx`` shared pages (16: the serve's 1,024-token template), every
+    8th row is outside the group (a short untemplated row, so that, as
+    in the serve, no row walks more than ~320 tokens of its own); each
+    member has decoded into its own pages past the template and its
+    suffix. Qwen3-30B-A3B's heads and pages unless ``nh``/``kvh``/``mp``
+    say otherwise."""
     n_pool, kd = 1 + QB * mp, kvh * DH
     member = np.ones(QB, bool)
     member[7::8] = False
-    past = N_PFX * PS + rng.integers(16, 257, QB) + rng.integers(0, 57, QB)
+    past = n_pfx * PS + rng.integers(16, 257, QB) + rng.integers(0, 57, QB)
     past[~member] = rng.integers(16, 321, int((~member).sum()))
     table = np.zeros((QB, mp), np.int32)
-    perm = rng.permutation(np.arange(1 + N_PFX, n_pool))
+    perm = rng.permutation(np.arange(1 + n_pfx, n_pool))
     nxt = 0
     for b in range(QB):
-        head = N_PFX if member[b] else 0
+        head = n_pfx if member[b] else 0
         if head:
-            table[b, :head] = np.arange(1, 1 + N_PFX)
+            table[b, :head] = np.arange(1, 1 + n_pfx)
         n = -(-int(past[b]) // PS) - head
         table[b, head : head + n] = perm[nxt : nxt + n]
         nxt += n
@@ -485,12 +514,93 @@ def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP):
         win_k=torch.randn((QB, 8, kd), generator=g, **bf),
         win_v=torch.randn((QB, 8, kd), generator=g, **bf),
         win_len=win_len,
-        pages=i32(np.arange(1, 1 + N_PFX)),
-        pfx_len=i32(np.where(member, N_PFX * PS, 0)),
-        pfx_cnt=i32(np.where(member, N_PFX, 0)),
+        pages=i32(np.arange(1, 1 + n_pfx)),
+        pfx_len=i32(np.where(member, n_pfx * PS, 0)),
+        pfx_cnt=i32(np.where(member, n_pfx, 0)),
         q_pos=i32(past + win_len),
         member=member, past=past,
     )
+
+
+def _carry_bound(x):
+    """The least time of a carry call: the shared K/V rows once, q in,
+    m/l/acc out; 4 flops per (member query head, prefix key, Dh) (q.k
+    and p.v)."""
+    n_pfx = x["pages"].numel()
+    pfx_tokens = n_pfx * PS
+    nbytes = (QB * QNH * DH * 2 + 2 * pfx_tokens * QKD * 2 + n_pfx * 4 + 2 * QB * 4
+              + QB * QNH * (2 * 4 + DH * 4))
+    return bound_ms(nbytes, 4 * int(x["member"].sum()) * pfx_tokens * QNH * DH)
+
+
+def _carry_cold_ms(torch, pc, x) -> float:
+    """The carry with its pages cold, as a layer's pages are on the main
+    path: page 0 and the shared pages copied into enough small pools to
+    exceed the L2 twice over, each call reading the next pool (no pool
+    repeats within ``time_ms``'s 23 calls)."""
+    n = 1 + x["pages"].numel()   # pages 0 .. n_pfx
+    k, v = x["k_pages"][:n], x["v_pages"][:n]
+    copies = max(24, math.ceil(2 * L2_BYTES / (2 * k.numel() * k.element_size())))
+    pools = itertools.cycle([(k.clone(), v.clone()) for _ in range(copies)])
+
+    def call():
+        kp, vp = next(pools)
+        pc.prefix_attention_carry(x["q"], kp, vp, x["pages"], x["pfx_len"], x["q_pos"], 0)
+
+    return time_ms(call)
+
+
+def carry_timings(rng, torch, dev, pc, serve_x=None) -> dict:
+    """The prefix carry at serve 2's shape (a 1,024-token template) and at
+    a 4,096-token one, window 0: warm (one call repeated: its 2-8 MB of
+    pages stay in L2) and cold, beside the memory-efficient SDPA with its
+    log-sum-exp and the bound. Uses only ``prefix_attention_carry`` and
+    its plain version, so a parent tree's package is timed the same way
+    (``--pair-timing``)."""
+    out = {}
+    for name, n_pfx in (("template_1024", N_PFX), ("template_4096", 64)):
+        x = serve_x if n_pfx == N_PFX and serve_x is not None else _prefix_inputs(
+            rng, torch, dev, mp=n_pfx + 8, n_pfx=n_pfx)
+        args = (x["q"], x["k_pages"], x["v_pages"], x["pages"], x["pfx_len"], x["q_pos"], 0)
+        want = pc.prefix_attention_carry_plain(*args)
+        got = pc.prefix_attention_carry(*args)
+        torch.cuda.synchronize()
+        live = want[1] > 0
+        err = max(check_close(f"prefix_carry[{name}].m", got[0][live], want[0][live]),
+                  check_close(f"prefix_carry[{name}].l", got[1], want[1]),
+                  check_close(f"prefix_carry[{name}].acc", got[2], want[2]))
+        library, _ = _library_carry(torch, x, want)
+        bms, by = _carry_bound(x)
+        out[name] = dict(warm_ms=time_ms(lambda: pc.prefix_attention_carry(*args)),
+                         cold_ms=_carry_cold_ms(torch, pc, x), library_ms=time_ms(library),
+                         bound_ms=bms, bound_by=by, max_abs_err=err,
+                         tokens=n_pfx * PS, member_rows=int(x["member"].sum()))
+        del x, args, want, got, library
+        torch.cuda.empty_cache()
+    return out
+
+
+def carry_split_sweep(torch, pc, carry_args) -> dict:
+    """The carry at serve 2's shape with its 16 tiles forced into 1, 2,
+    4 and 8 splits (``split_plan`` replaced for the call), each held
+    against the plain carry: the data behind the plan's one wave and
+    ``MIN_TILES``."""
+    want = pc.prefix_attention_carry_plain(*carry_args)
+    live = want[1] > 0
+    tiles = N_PFX * PS // pc.TILE_TOKENS[DH]
+    plan, out = pc.split_plan, {}
+    try:
+        for n in (1, 2, 4, 8):
+            pc.split_plan = lambda *a, n=n: (tiles // n, n)
+            got = pc.prefix_attention_carry(*carry_args)
+            torch.cuda.synchronize()
+            for i, (x, y) in enumerate(zip(got, want)):
+                check_close(f"prefix_carry[splits{n}][{i}]", x[live] if i == 0 else x,
+                            y[live] if i == 0 else y)
+            out[f"splits{n}"] = time_ms(lambda: pc.prefix_attention_carry(*carry_args))
+    finally:
+        pc.split_plan = plan
+    return out
 
 
 def kernel_prefix_split(rng, torch, dev) -> list:
@@ -549,15 +659,12 @@ def kernel_prefix_split(rng, torch, dev) -> list:
     library, lib_err = _library_carry(torch, x, pc.prefix_attention_carry_plain(*carry_args))
     carry_errs["library_sdpa_vs_plain"] = lib_err
     library_ms = time_ms(library)
-    # bounds: the carry reads the shared K/V rows once and q, writes
-    # m/l/acc; 4 flops per (query head, key, Dh) (q.k and p.v)
+    bc, byc = _carry_bound(x)
+    del library
+    timed = carry_timings(rng, torch, dev, pc, x)
+    split_sweep = carry_split_sweep(torch, pc, carry_args)
     member = x["member"]
-    n_member = int(member.sum())
     pfx_tokens = N_PFX * PS
-    nbytes = (QB * QNH * DH * 2 + 2 * pfx_tokens * QKD * 2 + N_PFX * 4 + 2 * QB * 4
-              + QB * QNH * (2 * 4 + DH * 4))
-    flops = 4 * n_member * pfx_tokens * QNH * DH
-    bc, byc = bound_ms(nbytes, flops)
     # the decode with the carry: each row's own K/V rows (past the
     # prefix), the window slots and current token, q and the carry in,
     # out back
@@ -570,7 +677,7 @@ def kernel_prefix_split(rng, torch, dev) -> list:
         _rec(pc.KERNEL, max_abs_err=max(v for k, v in carry_errs.items()
                                         if not k.startswith("library")),
              ms=ms_c, plain_ms=plain_c, bound_ms=bc, bound_by=byc, library_ms=library_ms,
-             cases=carry_errs,
+             cases=carry_errs, timed_cases=timed, split_sweep=split_sweep,
              library="aten._scaled_dot_product_efficient_attention with its log-sum-exp"),
         _rec(pd.CARRY, max_abs_err=max(dec_errs.values()), ms=ms_d, plain_ms=plain_d,
              bound_ms=bd, bound_by=byd, library_ms=None, cases=dec_errs,
@@ -668,7 +775,7 @@ def _library_carry(torch, x, want):
     member rows; returns (callable, max |err|)."""
     q = x["q"]
     G = QNH // QKVH
-    S = N_PFX * PS
+    S = x["pages"].numel() * PS
     idx = x["pages"].long()
 
     def heads_first(pool):   # [1, KVH, S, Dh]
@@ -726,24 +833,76 @@ def _library_grouped_mm(torch, lhs, rhs, sizes):
     return (lambda: torch.bmm(pad, rhs)), "torch.bmm over groups padded to the largest"
 
 
+def _routed_sizes(torch, g, router, n_tokens, empty=None, experts=GE):
+    """Group sizes of ``n_tokens`` tokens routed top-8 by a random router
+    (~127 of 128 experts from 64 tokens on) among the first ``experts``;
+    ``empty`` gets no rows."""
+    logits = torch.randn((n_tokens, GH), generator=g, device=router.device) @ router
+    logits[:, experts:] = float("-inf")
+    if empty is not None:
+        logits[:, empty] = float("-inf")
+    idx = torch.topk(logits, TOPK, dim=-1).indices.reshape(-1)
+    return torch.bincount(idx, minlength=GE).tolist()
+
+
+# name: (M, experts the router draws from): a row-seeded step's 3 rows, a
+# few decode rows, a decode step (and one over 21 experts, as many as the
+# random-weight serve's decode steps reach: stepprofile's experts_used),
+# serve 2's 2,048-token chunk, a 4,096-token prefill
+GMM_TIMED = {"M24": (24, GE), "M128": (128, GE), "M512": (512, GE),
+             "M512_experts21": (512, 21), "M16384": (16384, GE), "M32768": (32768, GE)}
+
+
+def gmm_timings(rng, torch, dev, gm, with_plain: bool = True) -> dict:
+    """The grouped GEMM through its wrapper at Qwen3-30B-A3B expert widths
+    for the calls of ``GMM_TIMED``, gate/up (H -> F) and down (F -> H),
+    beside ``torch._grouped_mm`` and the bound. Uses only
+    ``grouped_matmul`` and its plain version, so a parent tree's package
+    is timed the same way (``--pair-timing``)."""
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    router = torch.randn((GH, GE), generator=g, device=dev) * GH ** -0.5
+    weights = {"gate": torch.randn((GE, GH, GF), generator=g, **bf) * GH ** -0.5,
+               "down": torch.randn((GE, GF, GH), generator=g, **bf) * GF ** -0.5}
+    out = {}
+    for key, (M, experts) in GMM_TIMED.items():
+        sizes = _routed_sizes(torch, g, router, M // TOPK, experts=experts)
+        gs = torch.as_tensor(np.asarray(sizes, np.int32), device=dev)
+        used = sum(1 for n in sizes if n)
+        for proj, rhs in weights.items():
+            K, N = rhs.shape[1:]
+            lhs = torch.randn((M, K), generator=g, **bf)
+            want = gm.grouped_matmul_plain(lhs, rhs, gs)
+            err = check_close(f"grouped_matmul[{key}_{proj}]",
+                              gm.grouped_matmul(lhs, rhs, gs), want)
+            lib, lib_name = _library_grouped_mm(torch, lhs, rhs, sizes)
+            bms, by = bound_ms(M * K * 2 + used * K * N * 2 + M * N * 2 + GE * 4, 2 * M * K * N)
+            out[f"{key}_{proj}"] = dict(
+                ms=time_ms(lambda: gm.grouped_matmul(lhs, rhs, gs)),
+                host_us=host_us(lambda: gm.grouped_matmul(lhs, rhs, gs)),
+                library_ms=time_ms(lib), library=lib_name, bound_ms=bms, bound_by=by,
+                experts_used=used, max_abs_err=err,
+                **({"plain_ms": time_ms(lambda: gm.grouped_matmul_plain(lhs, rhs, gs),
+                                        iters=3, warmup=1)} if with_plain else {}),
+            )
+            del lhs, want, lib
+    return out
+
+
 def kernel_grouped_matmul(rng, torch, dev) -> dict:
-    """Expert GEMMs at Qwen3-30B-A3B shapes: a decode step's 512
-    (token, expert) rows routed by a random router, a 4,096-token
-    prefill's 32,768, one empty group and one hot expert, for the
-    gate/up (H -> F) and the down (F -> H) projections."""
+    """Expert GEMMs at Qwen3-30B-A3B shapes, held against the plain
+    version: decode steps' 512 (token, expert) rows routed by a random
+    router, prefills' 16,384 and 32,768, an empty group, one hot expert,
+    rows past the last group (which must be zero), for the gate/up
+    (H -> F) and the down (F -> H) projections; then timed
+    (``gmm_timings``). The record's main call is a decode step's gate/up
+    (M = 512), the call the serve makes most."""
     from sutro_tpu_torch.ops import grouped_matmul as gm
 
     bf = dict(dtype=torch.bfloat16, device=dev)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     router = torch.randn((GH, GE), generator=g, device=dev) * GH ** -0.5
-
-    def routed(n_tokens, empty=None):
-        logits = torch.randn((n_tokens, GH), generator=g, device=dev) @ router
-        if empty is not None:
-            logits[:, empty] = float("-inf")
-        idx = torch.topk(logits, TOPK, dim=-1).indices.reshape(-1)
-        return torch.bincount(idx, minlength=GE).tolist()
-
+    routed = lambda n, empty=None: _routed_sizes(torch, g, router, n, empty)  # noqa: E731
     w_up = torch.randn((GE, GH, GF), generator=g, **bf) * GH ** -0.5
     w_down = torch.randn((GE, GF, GH), generator=g, **bf) * GF ** -0.5
     hot = [0] * GE
@@ -751,15 +910,18 @@ def kernel_grouped_matmul(rng, torch, dev) -> dict:
     cases = {   # name: (group sizes, weights, lhs rows past the last group)
         "decode_M512_gate": (routed(64), w_up, 0),
         "decode_M512_down": (routed(64), w_down, 0),
+        "prefill_M16384_gate": (routed(2048), w_up, 0),
+        "prefill_M16384_down": (routed(2048), w_down, 0),
         "prefill_M32768_gate": (routed(4096), w_up, 0),
         "prefill_M32768_down": (routed(4096), w_down, 0),
         "empty_group_M512": (routed(64, empty=5), w_up, 0),
         "hot_expert_M512": (hot, w_up, 0),
         "rows_past_groups_M512": (routed(40), w_down, 192),
+        "rows_past_groups_M8192": (routed(1000), w_up, 192),
     }
     if cases["empty_group_M512"][0][5] != 0:
         raise AssertionError("grouped_matmul: the empty-group case has no empty group")
-    errs, timed = {}, {}
+    errs = {}
     for name, (sizes, rhs, pad) in cases.items():
         lhs = torch.randn((sum(sizes) + pad, rhs.shape[1]), generator=g, **bf)
         gs = torch.as_tensor(np.asarray(sizes, np.int32), device=dev)
@@ -769,26 +931,15 @@ def kernel_grouped_matmul(rng, torch, dev) -> dict:
         errs[name] = check_close(f"grouped_matmul[{name}]", got, want)
         if pad and got[sum(sizes):].any():
             raise AssertionError(f"grouped_matmul[{name}]: rows past the groups are not zero")
-        if name.startswith(("decode", "prefill")):
-            M, K = lhs.shape
-            N = rhs.shape[2]
-            used = sum(1 for n in sizes if n)
-            nbytes = M * K * 2 + used * K * N * 2 + M * N * 2 + GE * 4
-            bms, by = bound_ms(nbytes, 2 * M * K * N)
-            lib, lib_name = _library_grouped_mm(torch, lhs, rhs, sizes)
-            timed[name] = dict(
-                ms=time_ms(lambda: gm.grouped_matmul(lhs, rhs, gs)),
-                plain_ms=time_ms(lambda: gm.grouped_matmul_plain(lhs, rhs, gs), iters=3,
-                                 warmup=1),
-                library_ms=time_ms(lib), library=lib_name, bound_ms=bms, bound_by=by,
-                experts_used=used,
-            )
         del lhs, got, want
-    main = timed["decode_M512_gate"]   # a decode step's gate/up call
-    return _rec(gm.KERNEL, max_abs_err=max(errs.values()), ms=main["ms"],
-                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-                bound_by=main["bound_by"], library_ms=main["library_ms"], cases=errs,
-                library=main["library"], timed_cases=timed)
+    del w_up, w_down
+    timed = gmm_timings(rng, torch, dev, gm)
+    t = timed["M512_gate"]
+    return _rec(gm.KERNEL, max_abs_err=max([*errs.values(),
+                                            *(v["max_abs_err"] for v in timed.values())]),
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"], cases=errs,
+                library=t["library"], timed_cases=timed)
 
 
 # ---------------------------------------------------------------------------
@@ -1239,12 +1390,29 @@ def free_card(torch, model: str) -> None:
         raise AssertionError(f"the {model} runner was not freed: {held} bytes allocated")
 
 
+def pair_timing(torch, dev) -> dict:
+    """The two kernels redesigned last, timed through their wrappers
+    alone (``carry_timings``, ``gmm_timings`` without the plain loop), so
+    that the same code times a parent tree's package (``--package``)."""
+    from sutro_tpu_torch.ops import cuda_build, grouped_matmul, prefix_carry
+
+    cuda_build.build([prefix_carry.KERNEL, grouped_matmul.KERNEL])
+    rng = np.random.default_rng(4321)
+    return {"prefix_carry": carry_timings(rng, torch, dev, prefix_carry),
+            "grouped_matmul": gmm_timings(rng, torch, dev, grouped_matmul, with_plain=False)}
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if "--package" in args:   # time another tree's sutro_tpu_torch (--pair-timing)
+        sys.path.insert(0, str(Path(args[args.index("--package") + 1]).resolve()))
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    import sutro_tpu_torch
+
     from sutro_tpu_torch.engine.runner import set_matmul_precision
     from sutro_tpu_torch.ops import (
         cuda_build, flash_prefill, grouped_matmul, kv_write, paged_decode, prefix_carry,
@@ -1254,9 +1422,14 @@ def main() -> int:
     card = nvidia_smi_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
+    if "--pair-timing" in args:
+        package = str(Path(sutro_tpu_torch.__file__).resolve().parent)
+        print(json.dumps({"pair_timing": pair_timing(torch, dev), "package": package,
+                          "card": card}), flush=True)
+        return 0
     dense_path = [paged_decode.KERNEL, kv_write.KERNEL, flash_prefill.KERNEL]
-    templated_path = [grouped_matmul.KERNEL, prefix_carry.KERNEL, paged_decode.CARRY,
-                      kv_write.KERNEL, flash_prefill.KERNEL]
+    templated_path = [grouped_matmul.KERNEL, prefix_carry.KERNEL,
+                      paged_decode.CARRY, kv_write.KERNEL, flash_prefill.KERNEL]
     int8_path = [paged_decode.INT8, flash_prefill.KERNEL]
     # no silent bf16 route under an int8 pool
     int8_absent = [paged_decode.KERNEL, paged_decode.CARRY, kv_write.KERNEL]
@@ -1264,14 +1437,19 @@ def main() -> int:
     t0 = time.monotonic()
     logs = cuda_build.build(dense_path + templated_path + int8_path)
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build[{name}]: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:   # the mangled name, as SASS lists it
+                fn = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"build[{name}]: {fn}: {line.strip()}", flush=True)
     print(f"build: {len(logs)} sources compiled in {time.monotonic() - t0:.1f}s", flush=True)
-    for k in (flash_prefill.KERNEL, paged_decode.KERNEL):   # the two redesigned kernels
+    # the four redesigned kernels: tensor-core, cp.async and TMA instructions
+    for k in (flash_prefill.KERNEL, paged_decode.KERNEL, prefix_carry.KERNEL,
+              grouped_matmul.KERNEL):
         for fn, n in cuda_build.sass_counts(k).items():
-            print(f"sass[{k.source.name}]: {fn}: HMMA/HGMMA={n['mma']} LDGSTS={n['cp_async']}",
-                  flush=True)
+            print(f"sass[{k.source.name}]: {fn}: HMMA/HGMMA={n['mma']} LDGSTS={n['cp_async']} "
+                  f"UTMALDG={n['tma']}", flush=True)
 
     records = []
     rng = np.random.default_rng(1234)
@@ -1282,13 +1460,13 @@ def main() -> int:
         for rec in recs if isinstance(recs, list) else [recs]:
             lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
             extra = {k: rec[k] for k in ("library", "split_pair_ms", "full_table_ms",
-                                         "timed_cases") if k in rec}
+                                         "timed_cases", "split_sweep") if k in rec}
             print(f"kernel[{rec['name']}]: ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
                   f"library_ms={lib} bound_ms={rec['bound_ms']:.4f} "
                   f"({rec['bound_by']}) max_abs_err={rec['max_abs_err']:.3e} "
                   f"cases={json.dumps(rec['cases'])} {json.dumps(extra)}", flush=True)
             records.append(rec)
-    if "--kernels-only" in sys.argv[1:]:
+    if "--kernels-only" in args:
         print(f"card: {card}")
         return 0
 

@@ -147,10 +147,11 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
 
 
 def sass_counts(kernel: CudaKernel) -> Dict[str, Dict[str, int]]:
-    """``{function: {"mma": n, "cp_async": n}}`` for the kernel's built
-    library: its tensor-core instructions (``HMMA``/``HGMMA``) and its
-    asynchronous global-to-shared copies (``LDGSTS``) as ``cuobjdump
-    -sass`` lists them."""
+    """``{function: {"mma": n, "cp_async": n, "tma": n}}`` for the
+    kernel's built library: its tensor-core instructions
+    (``HMMA``/``HGMMA``), its asynchronous global-to-shared copies
+    (``LDGSTS``) and its TMA loads (``UTMALDG``) as ``cuobjdump -sass``
+    lists them."""
     tool = Path(nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run(
         [str(tool), "-sass", str(kernel.library_path())],
@@ -161,11 +162,27 @@ def sass_counts(kernel: CudaKernel) -> Dict[str, Dict[str, int]]:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = {"mma": 0, "cp_async": 0}
+            counts[fn] = {"mma": 0, "cp_async": 0, "tma": 0}
         elif fn is not None:
             counts[fn]["mma"] += ("HMMA" in line) or ("HGMMA" in line)
             counts[fn]["cp_async"] += "LDGSTS" in line
+            counts[fn]["tma"] += "UTMALDG" in line
     return counts
+
+
+_N_SM: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The card's multiprocessor count, read once per device (the
+    wrappers that size their grids by it run thousands of times a
+    serve)."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _N_SM:
+        _N_SM[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _N_SM[index]
 
 
 def stream_handle(device) -> ctypes.c_void_p:

@@ -12,8 +12,9 @@ The group sizes never come to the host on the card: the kernel reads
 them on the device (csrc/grouped_matmul.cu), so the fused decode window
 chains through the MoE layers without a host wait.
 
-On a CUDA tensor the wrapper launches ``csrc/grouped_matmul.cu`` or
-raises; on a CPU tensor it runs :func:`grouped_matmul_plain`.
+On a CUDA tensor the wrapper launches ``csrc/grouped_matmul.cu`` (one
+``wgmma``/TMA kernel for every M) or raises; on a CPU tensor it runs
+:func:`grouped_matmul_plain`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ KERNEL = CudaKernel(
     [_P] * 4 + [_I] * 4 + [_P],
     replaces="sutro_tpu/ops/pallas_gmm.py:67",
 )
+MAX_EXPERTS = 1024  # the kernel's tile table in shared memory (csrc MAX_EXPERTS)
 
 
 def grouped_matmul_plain(
@@ -74,11 +76,11 @@ def grouped_matmul(
         )
     M, H = lhs.shape
     E, H2, F = rhs.shape
-    if H2 != H or group_sizes.shape[0] != E or E < 1 or H % 8 or F % 8:
+    if H2 != H or group_sizes.shape[0] != E or not 1 <= E <= MAX_EXPERTS or H % 8 or F % 8:
         raise ValueError(
             f"grouped_matmul: unsupported shapes lhs {tuple(lhs.shape)} rhs "
             f"{tuple(rhs.shape)} group_sizes {tuple(group_sizes.shape)} "
-            "(H and F must be multiples of 8)"
+            f"(H and F must be multiples of 8, 1 <= E <= {MAX_EXPERTS})"
         )
     args = (lhs, rhs, group_sizes)
     if any(t.device != lhs.device for t in args):

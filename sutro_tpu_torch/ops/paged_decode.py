@@ -50,7 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .cuda_build import CudaKernel, ptr, stream_handle
+from .cuda_build import CudaKernel, ptr, sm_count, stream_handle
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -181,16 +181,6 @@ def merge_partials_plain(m, l, acc, sink=None, m0=None, l0=None, acc0=None):
     if sink is not None:
         L = L + torch.exp(sink.float()[None] - M)
     return A / torch.clamp(L, min=1e-30)[..., None]
-
-
-_N_SM = {}
-
-
-def _sm_count(device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _N_SM:
-        _N_SM[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _N_SM[index]
 
 
 def paged_decode_plain(
@@ -388,7 +378,7 @@ def paged_decode_attention(
     out = torch.empty_like(q)
     if B == 0:
         return out
-    split, n_splits = split_plan(MP, PS, B, KVH, _sm_count(q.device))
+    split, n_splits = split_plan(MP, PS, B, KVH, sm_count(q.device))
     # the partials m, l [S, B, NH] and acc [S, B, NH, Dh], float32
     work = torch.empty(n_splits * B * NH * (Dh + 2), dtype=torch.float32, device=q.device)
     common = (

@@ -34,18 +34,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from .cuda_build import CudaKernel, ptr, stream_handle
+from .cuda_build import CudaKernel, ptr, sm_count, stream_handle
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
-TILE_TOKENS = 64   # prefix tokens per kernel tile (csrc TT)
+TILE_TOKENS = {64: 64, 128: 64, 256: 32}  # prefix tokens per tile, by Dh (csrc TT)
 QUERY_ROWS = 64    # query rows (b, g) per block (csrc QT)
+BLOCKS_PER_SM = 1  # the kernel's occupancy: one block of 8 warps an SM
+MIN_TILES = 4      # tiles a split walks at least
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "prefix_carry",
     "prefix_carry_bf16",
-    [_P] * 12 + [_I] * 8 + [ctypes.c_float, _P],
+    [_P] * 12 + [_I] * 9 + [ctypes.c_float, _P],
     replaces="sutro_tpu/ops/pallas_paged.py:558",
 )
 
@@ -92,13 +94,19 @@ def prefix_attention_carry_plain(
     return m.reshape(B, NH), p.sum(-1).reshape(B, NH), acc.reshape(B, NH, Dh)
 
 
-def _n_split(n_tiles: int, blocks: int, device) -> int:
-    """Splits of the prefix's tiles: enough blocks for two waves of SMs,
-    and no split without a tile (the kernel gives each split
-    ceil(n_tiles / splits) tiles)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_tiles, math.ceil(2 * sms / blocks)))
-    return math.ceil(n_tiles / math.ceil(n_tiles / want))
+def split_plan(Pp: int, PS: int, B: int, G: int, KVH: int, Dh: int,
+               n_sm: int) -> Tuple[int, int]:
+    """``(tiles per split, splits)`` of a carry over ``Pp`` pages of
+    ``PS`` tokens for ``B`` rows of ``G`` query heads per KV head, on a
+    card with ``n_sm`` multiprocessors. Few, long splits: the grid stays
+    within one wave of ``BLOCKS_PER_SM`` blocks an SM and a split walks
+    at least ``MIN_TILES`` tiles; every split has a tile. Static shapes
+    only: ``pfx_len`` is never read, so nothing waits for the card."""
+    tiles = max(1, math.ceil(Pp * PS / TILE_TOKENS[Dh]))
+    blocks = KVH * math.ceil(B * G / QUERY_ROWS)
+    want = max(1, min(BLOCKS_PER_SM * n_sm // blocks, tiles // MIN_TILES))
+    per = math.ceil(tiles / want)
+    return per, math.ceil(tiles / per)
 
 
 def prefix_attention_carry(
@@ -155,18 +163,18 @@ def prefix_attention_carry(
     acc0 = torch.empty((B, NH, Dh), **f32)
     if B == 0:
         return m0, l0, acc0
-    G = NH // KVH
-    n_tiles = math.ceil(Pp * PS / TILE_TOKENS)
-    n_split = _n_split(n_tiles, KVH * math.ceil(B * G / QUERY_ROWS), q.device)
+    per, n_split = split_plan(Pp, PS, B, NH // KVH, KVH, Dh, sm_count(q.device))
     part = [None, None, None]
     if n_split > 1:
-        part = [torch.empty((n_split, B, NH), **f32),
-                torch.empty((n_split, B, NH), **f32),
-                torch.empty((n_split, B, NH, Dh), **f32)]
+        # the partials m, l [S, B, NH] and acc [S, B, NH, Dh] in one buffer,
+        # acc first: the combine reads it in 16-byte vectors
+        n = n_split * B * NH
+        work = torch.empty(n * (Dh + 2), **f32)
+        part = [work[n * Dh : n * (Dh + 1)], work[n * (Dh + 1) :], work[: n * Dh]]
     KERNEL.launch(
         *(ptr(t) for t in args), ptr(m0), ptr(l0), ptr(acc0),
         *(ptr(t) for t in part),
-        B, NH, KVH, Dh, PS, Pp, int(window), n_split,
+        B, NH, KVH, Dh, PS, Pp, int(window), per, n_split,
         ctypes.c_float(Dh ** -0.5), stream_handle(q.device),
     )
     return m0, l0, acc0

@@ -1,4 +1,4 @@
-"""The redesigned attention kernels against their plain versions, on the card.
+"""The hand-written kernels against their plain versions, on the card.
 
 Every test is marked ``cuda`` and skips where there is no card. The
 module imports neither ``jax`` nor ``sutro_tpu`` and needs nothing of
@@ -9,7 +9,7 @@ as
 
 Inputs are bfloat16 (int8 pages with their per-token scales), outputs
 held at atol = rtol = 2e-2: the output's bf16 rounding, plus p rounded
-to bf16 for the value product in both kernels.
+to bf16 for the value product in the attention kernels.
 
 - flash prefill: T in {1, 15, 64, 65, 500, 2048} x Dh in {64, 128, 256}
   x G in {1, 4, 8}, each with no options and with a window and a sink;
@@ -17,15 +17,29 @@ to bf16 for the value product in both kernels.
   boundary of the wrapper's plan +- 1 and 8,192, padding rows, a window
   that starts inside a split, window slots with win_len 0..W, the carry
   with pfx_cnt > 0, the sink;
+- the prefix carry: Dh in {64, 128, 256} x G in {1, 4, 8, 16} x
+  prefixes of 1, 16 and 64 pages (64 to 4,096 tokens), each with no
+  window and a window that cuts the prefix; rows outside the group
+  (pfx_len 0), a pfx_len that ends mid-page, page-0 padding past the
+  shared pages, B*G not a multiple of the query tile;
+- the grouped GEMM: empty groups, one hot expert, all groups empty,
+  rows past the last group (which must be zero), M from 1 row to a few
+  decode rows and across a row tile, H and F not multiples of the tiles,
+  and Qwen3-30B-A3B's expert widths (gate/up and down) from a few decode
+  rows to a prefill's 32,768;
 - the combinations each wrapper refuses raise.
 """
+
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
 from sutro_tpu_torch.ops import flash_prefill as fp
+from sutro_tpu_torch.ops import grouped_matmul as gm
 from sutro_tpu_torch.ops import paged_decode as pd
+from sutro_tpu_torch.ops import prefix_carry as pc
 
 TOL = 2e-2
 
@@ -232,3 +246,133 @@ def test_paged_decode_refuses(dev):
         pd.paged_decode_attention(yargs[0], pool, yargs[2], *yargs[3:])
     with pytest.raises(ValueError):  # inconsistent shapes
         pd.paged_decode_attention(*yargs[:5], yargs[5][:, :1], yargs[6])
+
+
+# ---------------------------------------------------------------------------
+# prefix carry
+# ---------------------------------------------------------------------------
+
+CARRY_B = 13  # B*G is not a multiple of the kernel's query tile for any G
+
+
+def _carry_case(dev, Dh, G, n_pages, seed, KVH=2):
+    """A shared prefix of ``n_pages`` pages (page-0 padding after them)
+    in a pool of scattered pages. Row kinds, in turn: members with the
+    full prefix, rows outside the group (pfx_len 0), members whose
+    pfx_len ends mid-page; q_pos past each row's prefix."""
+    rng = np.random.default_rng(seed)
+    NH, KD = G * KVH, KVH * Dh
+    NP = 1 + n_pages + 3
+    pages = rng.permutation(np.arange(1, NP))[:n_pages].astype(np.int32)
+    padded = np.concatenate([pages, np.zeros(2, np.int32)])
+    Lp = n_pages * PS
+    kind = np.arange(CARRY_B) % 3
+    pfx_len = np.where(kind == 0, Lp, np.where(kind == 1, 0, max(1, Lp - 17)))
+    q_pos = pfx_len + rng.integers(0, 300, CARRY_B)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    return dict(q=torch.randn((CARRY_B, NH, Dh), **bf),
+                k_pages=torch.randn((NP, PS, KD), **bf),
+                v_pages=torch.randn((NP, PS, KD), **bf),
+                pfx_pages=i32(padded), pfx_len=i32(pfx_len), q_pos=i32(q_pos)), Lp
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("n_pages", [1, 16, 64])
+def test_prefix_carry_matches_plain(dev, Dh, G, n_pages):
+    x, Lp = _carry_case(dev, Dh, G, n_pages, seed=Dh * 100 + G * 7 + n_pages)
+    outside = x["pfx_len"] == 0
+    # no window, and one that starts inside the prefix for every member
+    for window in (0, Lp // 2 + 5):
+        args = (x["q"], x["k_pages"], x["v_pages"], x["pfx_pages"], x["pfx_len"], x["q_pos"],
+                window)
+        got = pc.prefix_attention_carry(*args)
+        want = pc.prefix_attention_carry_plain(*args)
+        torch.cuda.synchronize()
+        live = want[1] > 0  # m matters only where a key was in range
+        try:
+            _close(got[0][live], want[0][live])
+            _close(got[1], want[1])
+            _close(got[2], want[2])
+        except AssertionError as err:
+            raise AssertionError(f"window {window}") from err
+        # the cold carry, exactly, for the rows outside the group
+        assert (got[0][outside] == pc.NEG_INF).all()
+        assert (got[1][outside] == 0).all() and (got[2][outside] == 0).all()
+
+
+def test_prefix_carry_refuses(dev):
+    x, _ = _carry_case(dev, 64, 4, 1, seed=5)
+    args = [x["q"], x["k_pages"], x["v_pages"], x["pfx_pages"], x["pfx_len"], x["q_pos"]]
+    with pytest.raises(TypeError):  # float32 q
+        pc.prefix_attention_carry(args[0].float(), *args[1:])
+    with pytest.raises(TypeError):  # int64 lengths
+        pc.prefix_attention_carry(*args[:4], args[4].long(), args[5])
+    with pytest.raises(ValueError):  # Dh = 96
+        bf = dict(device=dev, dtype=torch.bfloat16)
+        pc.prefix_attention_carry(torch.zeros((CARRY_B, 4, 96), **bf),
+                                  torch.zeros((3, PS, 192), **bf),
+                                  torch.zeros((3, PS, 192), **bf), *args[3:])
+    with pytest.raises(ValueError):  # inconsistent shapes
+        pc.prefix_attention_carry(*args[:4], args[4][:-1], args[5])
+
+
+# ---------------------------------------------------------------------------
+# grouped GEMM
+# ---------------------------------------------------------------------------
+
+
+def _sizes_summing_to(rng, E, M, empty=()):
+    """Random group sizes with sum M, the groups ``empty`` left empty."""
+    live = [e for e in range(E) if e not in empty]
+    cuts = np.sort(rng.integers(0, M + 1, len(live) - 1))
+    parts = np.diff(np.concatenate([[0], cuts, [M]]))
+    sizes = [0] * E
+    for e, n in zip(live, parts):
+        sizes[e] = int(n)
+    return sizes
+
+
+def _gmm_cases():
+    """name: (E, H, F, sizes or a total M, lhs rows past the last group).
+    A total M is cut into random sizes with some groups empty."""
+    E, H, F = 8, 136, 200  # H, F multiples of 8, not of the tiles
+    return {
+        "empty_groups": (E, H, F, [100, 28, 0, 128, 0, 7, 0, 1], 0),
+        "one_hot_expert": (E, H, F, [0, 0, 0, 0, 0, 700, 0, 0], 0),
+        "all_groups_empty": (E, H, F, [0] * E, 70),
+        "rows_past_groups": (E, H, F, [100, 28, 0, 60, 5, 0, 0, 3], 150),
+        "M1": (E, H, F, 1, 0),
+        "M127": (E, H, F, 127, 0),
+        "M129_past_groups": (E, H, F, 129, 33),
+        "large_M": (E, H, F, 3000, 0),
+        "wide_H520_F1032": (E, 520, 1032, 2500, 40),
+        "qwen3_30b_gate_M24": (128, 2048, 768, 24, 0),
+        "qwen3_30b_gate_M528_22_experts": (128, 2048, 768,
+                                           [24 if e % 6 == 0 else 0 for e in range(128)], 0),
+        "qwen3_30b_gate_M4096": (128, 2048, 768, 4096, 0),
+        "qwen3_30b_gate_M32768": (128, 2048, 768, 32768, 0),
+        "qwen3_30b_down_M512": (128, 768, 2048, 512, 0),
+        "qwen3_30b_down_M16384": (128, 768, 2048, 16384, 0),
+    }
+
+
+@pytest.mark.parametrize("name", list(_gmm_cases()))
+def test_grouped_matmul_matches_plain(dev, name):
+    E, H, F, sizes, pad = _gmm_cases()[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if not isinstance(sizes, list):
+        sizes = _sizes_summing_to(rng, E, sizes, empty=(1, E // 2))
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    n = sum(sizes)
+    lhs = torch.randn((n + pad, H), **bf)
+    rhs = torch.randn((E, H, F), **bf) * H ** -0.5
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    got = gm.grouped_matmul(lhs, rhs, gs)
+    want = gm.grouped_matmul_plain(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    _close(got, want)
+    assert not got[n:].any(), "rows past the last group must be zero"
