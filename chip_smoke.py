@@ -59,7 +59,23 @@ Phases, in order; any failure raises and exits non-zero:
    logits with and without the prefix groups, and a fused window with
    the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
-6. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+6. serve 4, on serve 2's runner after serve 2's job (the model is not
+   loaded again): a schema-constrained templated job of 96 rows, one
+   shared 1,024-token template with the classify system prompt at its
+   head and a 16-256-token suffix each, at most 128 new tokens: 64
+   greedy rows under the classify template's schema, 16 greedy under
+   an extraction schema, 16 sampled (0.7, top-p 0.9) under the classify
+   schema; then 16 unconstrained greedy rows with repetitive prompts
+   and ``spec_ngram_draft=4``. Every constrained row must parse as JSON
+   with its schema's required keys, types and labels; the runner's
+   ``decode_window``, ``commit_window``, ``verify_candidates``,
+   ``verify_greedy`` and masked ``decode_step`` must each be called;
+   the grouped GEMM, the prefix carry, the carry-mode paged decode, the
+   page write and flash prefill must launch in the job; the verify
+   forward's logits at each row's first position must match the
+   decode forward's (two sets of 8 rows). It prints the mask core
+   (native or Python) and the host time spent on masks;
+7. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
    16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
    past). Every row must finish, the int8 paged decode and flash
@@ -107,6 +123,72 @@ REL_L2 = 5e-2       # logits of a bf16 model against a plain-version forward
 SLEEP_CYCLES = 40_000_000  # ~20 ms of device sleep before a timed run
 L2_BYTES = 50e6            # H100 L2 cache: inputs rotated past twice this are cold
 ALPHABET = np.array(list("abcdefghijklmnopqrstuvwxyz ,.;:!?"))
+
+
+# Serve 4's schemas. The classify template's output schema is what the
+# pydantic model of sutro_tpu/templates/classification.py emits for these
+# four labels; pydantic is not on the card's machine, so the dict is
+# written out here (tests/test_torch_constrain.py pins it to the model's
+# ``model_json_schema()``, and the system prompt to the template's).
+CLASSIFY_LABELS = ("positive", "negative", "neutral", "mixed")
+CLASSIFY_SCHEMA = {
+    "$defs": {"ClassLabel": {"enum": list(CLASSIFY_LABELS), "title": "ClassLabel",
+                             "type": "string"}},
+    "properties": {
+        "scratchpad": {"maxLength": 400, "title": "Scratchpad", "type": "string"},
+        "classification": {"$ref": "#/$defs/ClassLabel"},
+    },
+    "required": ["scratchpad", "classification"],
+    "title": "ClassificationOutput",
+    "type": "object",
+}
+CLASSIFY_SYSTEM_PROMPT = (
+    "You are an expert classifier. Classify the user's input into exactly one of the "
+    "following classes:\n" + "".join(f"- {label}\n" for label in CLASSIFY_LABELS)
+    + "\nFirst think briefly in the scratchpad, then answer with the chosen class label, "
+    "exactly as written above."
+)
+# an extraction job's schema: an integer, a boolean, an array of strings
+# and a nested object, all required
+EXTRACT_SCHEMA = {
+    "type": "object",
+    "properties": {
+        "count": {"type": "integer"},
+        "urgent": {"type": "boolean"},
+        "tags": {"type": "array", "items": {"type": "string", "maxLength": 24}, "maxItems": 4},
+        "contact": {
+            "type": "object",
+            "properties": {"name": {"type": "string", "maxLength": 40},
+                           "year": {"type": "integer"}},
+            "required": ["name", "year"],
+        },
+    },
+    "required": ["count", "urgent", "tags", "contact"],
+}
+
+
+def schema_errors(schema: dict, text: str) -> list:
+    """What is wrong with ``text`` under one of serve 4's two schemas:
+    not JSON, a required key missing, a value of the wrong type, a label
+    outside the enum. Empty when the text is valid."""
+    try:
+        obj = json.loads(text)
+    except ValueError as e:
+        return [f"not JSON: {e}"]
+    if not isinstance(obj, dict):
+        return ["not an object"]
+    is_int = lambda v: isinstance(v, int) and not isinstance(v, bool)  # noqa: E731
+    if schema is CLASSIFY_SCHEMA:
+        checks = {"scratchpad": lambda v: isinstance(v, str) and len(v) <= 400,
+                  "classification": lambda v: v in CLASSIFY_LABELS}
+    else:
+        checks = {"count": is_int, "urgent": lambda v: isinstance(v, bool),
+                  "tags": lambda v: isinstance(v, list) and len(v) <= 4
+                  and all(isinstance(t, str) for t in v),
+                  "contact": lambda v: isinstance(v, dict) and isinstance(v.get("name"), str)
+                  and is_int(v.get("year"))}
+    return [f"{key}: {obj.get(key)!r}" for key, ok in checks.items()
+            if key not in obj or not ok(obj[key])]
 
 
 def nvidia_smi_line() -> str:
@@ -1002,31 +1084,46 @@ def check_prefill_logits(torch, runner, rows, label: str) -> float:
     return rel
 
 
-def count_decode_calls(runner, calls: dict) -> None:
-    """Count the runner's two decode entry points, and those calls that
-    carried shared-prefix groups."""
-    for name in ("decode_step", "decode_multi_async"):
-        calls.setdefault(name, 0)
-        calls.setdefault(name + "_with_groups", 0)
+DECODE_ENTRIES = ("decode_step", "decode_multi_async")
+CONSTRAINED_ENTRIES = ("decode_window", "commit_window", "verify_candidates", "verify_greedy")
+
+
+def count_decode_calls(runner, calls: dict, names=DECODE_ENTRIES) -> None:
+    """Count calls of the runner's entry points ``names``, and those
+    calls that carried shared-prefix groups (``_with_groups``) or a
+    vocabulary mask (``_masked``: a constrained row's masked step)."""
+    for name in names:
+        for key in ("", "_with_groups", "_masked"):
+            calls.setdefault(name + key, 0)
 
         def counted(*a, _fn=getattr(runner, name), _name=name, **k):
             calls[_name] += 1
             calls[_name + "_with_groups"] += bool(k.get("pfx"))
+            calls[_name + "_masked"] += k.get("allowed") is not None
             return _fn(*a, **k)
         setattr(runner, name, counted)
 
 
-def run_batch(torch, runner, requests, kernels, seed: int, absent=()):
+def check_full_length(runner, r) -> None:
+    """Serves 1-3: every row decodes its 64 tokens (no stop ids)."""
+    if r.error or r.finish_reason != "length" or len(r.token_ids) != 64:
+        raise AssertionError(
+            f"row {r.row_id}: {r.finish_reason!r} {len(r.token_ids)} tokens {r.error!r}")
+
+
+def run_batch(torch, runner, requests, kernels, seed: int, absent=(), stop_ids=(),
+              check_row=check_full_length):
     """``ContinuousBatcher.run`` with every launch counter at 0 just
-    before it; returns (results, launches during the run, timer, wall).
-    Every kernel of ``kernels`` must launch in the run, and none of
-    ``absent`` (a route the path must not take)."""
+    before it; returns (results, launches during the run, the batcher,
+    wall). Every row must pass ``check_row``, every kernel of
+    ``kernels`` must launch in the run, and none of ``absent`` (a route
+    the path must not take)."""
     from sutro_tpu_torch.engine.scheduler import ContinuousBatcher
 
     for k in (*kernels, *absent):
         k.launches = 0
     results = {}
-    batcher = ContinuousBatcher(runner, stop_ids=[], seed=seed)
+    batcher = ContinuousBatcher(runner, stop_ids=list(stop_ids), seed=seed)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     state = batcher.run(requests, on_result=lambda r: results.__setitem__(r.row_id, r))
@@ -1036,9 +1133,7 @@ def run_batch(torch, runner, requests, kernels, seed: int, absent=()):
     if state != "completed" or len(results) != len(requests):
         raise AssertionError(f"run ended {state!r} with {len(results)}/{len(requests)} rows")
     for r in results.values():
-        if r.error or r.finish_reason != "length" or len(r.token_ids) != 64:
-            raise AssertionError(
-                f"row {r.row_id}: {r.finish_reason!r} {len(r.token_ids)} tokens {r.error!r}")
+        check_row(runner, r)
         if not all(0 <= t < runner.mcfg.vocab_size for t in r.token_ids):
             raise AssertionError(f"row {r.row_id}: token id out of range")
         if not math.isfinite(r.cumulative_logprob):
@@ -1050,7 +1145,7 @@ def run_batch(torch, runner, requests, kernels, seed: int, absent=()):
         if launches[k.name]:
             raise AssertionError(f"kernel {k.name} launched {launches[k.name]} times on a "
                                  "path that must not take it")
-    return results, launches, batcher.timer.summary(), wall
+    return results, launches, batcher, wall
 
 
 def mixed_requests(prompts, n_new: int = 64):
@@ -1074,9 +1169,9 @@ def mixed_requests(prompts, n_new: int = 64):
     return requests
 
 
-def serve_summary(prompts, n_new, results, launches, calls, timer, wall, rel) -> dict:
+def serve_summary(prompts, results, launches, calls, timer, wall, rel) -> dict:
     n_prompt = int(sum(len(p) for p in prompts))
-    n_gen = n_new * len(results)
+    n_gen = sum(len(r.token_ids) for r in results.values())
     pre_s = timer.get("prefill", {}).get("total_s", float("nan"))
     dec_s = timer.get("decode", {}).get("total_s", float("nan"))
     return dict(rows=len(results), prompt_tokens=n_prompt, generated_tokens=n_gen,
@@ -1114,13 +1209,36 @@ def serve(torch, kernels, dev, n_requests: int = 96, seed: int = 0) -> dict:
     rel = check_prefill_logits(torch, runner, prompts[:4], "serve")
     calls = {}
     count_decode_calls(runner, calls)
-    results, launches, timer, wall = run_batch(
+    results, launches, batcher, wall = run_batch(
         torch, runner, mixed_requests(prompts), kernels, seed)
     if min(calls["decode_step"], calls["decode_multi_async"]) <= 0:
         raise AssertionError(f"the batch did not take both decode paths: {calls}")
-    out = serve_summary(prompts, 64, results, launches, calls, timer, wall, rel)
+    out = serve_summary(prompts, results, launches, calls, batcher.timer.summary(), wall, rel)
     print("serve: " + json.dumps(out), flush=True)
     return out
+
+
+def prefill_template_rows(runner, template, rows, room: int = 1) -> np.ndarray:
+    """The template in pages 1.., each of ``rows`` (template + suffix)
+    after it in its own pages, with ``room`` more tokens of space a row.
+    Returns the rows' page tables."""
+    ecfg = runner.ecfg
+    PSz = ecfg.kv_page_size
+    n_pfx = len(template) // PSz
+    head = np.zeros((ecfg.max_pages_per_seq,), np.int32)
+    head[:n_pfx] = np.arange(1, 1 + n_pfx)
+    runner.prefill(template, head)
+    tables, nxt = [], 1 + n_pfx
+    for p in rows:
+        t = head.copy()
+        n = -(-(len(p) + room) // PSz) - n_pfx
+        t[n_pfx : n_pfx + n] = np.arange(nxt, nxt + n)
+        nxt += n
+        tables.append(t)
+    tables = np.stack(tables)
+    runner.prefill_batch_at([p[len(template):] for p in rows], tables,
+                            [len(template)] * len(rows))
+    return tables
 
 
 def check_split_decode(torch, runner, template, rows, rng, label: str):
@@ -1133,22 +1251,10 @@ def check_split_decode(torch, runner, template, rows, rng, label: str):
     from sutro_tpu_torch.models import transformer
     from sutro_tpu_torch.ops import attention
 
-    dev, mcfg, ecfg = runner.device, runner.mcfg, runner.ecfg
-    PSz, n_rows = ecfg.kv_page_size, len(rows)
-    n_pfx = len(template) // PSz
-    head = np.zeros((ecfg.max_pages_per_seq,), np.int32)
-    head[:n_pfx] = np.arange(1, 1 + n_pfx)
-    runner.prefill(template, head)
-    tables, nxt = [], 1 + n_pfx
-    for p in rows:
-        t = head.copy()
-        n = -(-(len(p) + 1) // PSz) - n_pfx
-        t[n_pfx : n_pfx + n] = np.arange(nxt, nxt + n)
-        nxt += n
-        tables.append(t)
-    tables = np.stack(tables)
-    runner.prefill_batch_at([p[len(template):] for p in rows], tables,
-                            [len(template)] * n_rows)
+    dev, mcfg = runner.device, runner.mcfg
+    n_rows = len(rows)
+    n_pfx = len(template) // runner.ecfg.kv_page_size
+    tables = prefill_template_rows(runner, template, rows)
     past = torch.as_tensor([len(p) for p in rows], dtype=torch.int32, device=dev)
     table_t = torch.as_tensor(tables, device=dev)
     ones = torch.ones((n_rows,), dtype=torch.int32, device=dev)
@@ -1184,10 +1290,11 @@ def check_split_decode(torch, runner, template, rows, rng, label: str):
     return rel, attn_err, tables
 
 
-def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0) -> dict:
+def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0):
     """Serve 2: a templated classify/extract-style job on qwen3-30b-a3b
     with prefix_split on. Every request is one shared 1,024-token
-    template (16 pages) and a distinct 16-256-token suffix."""
+    template (16 pages) and a distinct 16-256-token suffix. Returns the
+    summary and the runner (serve 4 runs on it)."""
     from sutro_tpu_torch.engine.config import EngineConfig
     from sutro_tpu_torch.engine.runner import ModelRunner
     from sutro_tpu_torch.engine.stepprofile import ENGINES
@@ -1241,15 +1348,229 @@ def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0) ->
 
     calls = {}
     count_decode_calls(runner, calls)
-    results, launches, timer, wall = run_batch(
+    results, launches, batcher, wall = run_batch(
         torch, runner, mixed_requests(prompts), kernels, seed)
     if min(calls["decode_step_with_groups"], calls["decode_multi_async_with_groups"]) <= 0:
         raise AssertionError(f"both decode paths must run with prefix groups: {calls}")
-    out = serve_summary(prompts, 64, results, launches, calls, timer, wall, max(rels))
+    out = serve_summary(prompts, results, launches, calls, batcher.timer.summary(), wall,
+                        max(rels))
     out["logits_rel_l2_by_rows"] = rels
     out["split_vs_full_rel_l2"] = [c[0] for c in split_checks]
     out["split_vs_full_layer0_attn_max_abs"] = [c[1] for c in split_checks]
     print("serve2: " + json.dumps(out), flush=True)
+    return out, runner
+
+
+def check_verify_logits(torch, runner, template, rows, rng, label: str) -> float:
+    """``rows`` (template + suffix) prefilled; then each row's next
+    token through the decode forward (the paged-decode kernel, with
+    the template as a prefix group, as ``decode_step`` runs it) and
+    through the verify forward (``[last, 4 draft tokens]`` over the
+    paged past, as ``verify_greedy``/``verify_candidates`` run it). The
+    verify logits at each row's first position must match the decode
+    logits within REL_L2. Returns the relative L2 error."""
+    dev = runner.device
+    tables = prefill_template_rows(runner, template, rows, room=5)
+    n_rows = len(rows)
+    past = np.array([len(p) for p in rows], np.int32)
+    last = rng.integers(3, 256, n_rows).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    n_pfx = len(template) // runner.ecfg.kv_page_size
+    pfx = runner._pfx_up(((np.arange(1, 1 + n_pfx, dtype=np.int32),
+                           np.full(n_rows, len(template), np.int32)),))
+    with torch.no_grad():
+        dec, _, _ = runner._trunk_decode(t(last)[:, None], t(past)[:, None], t(past),
+                                         t(tables), pfx=pfx)
+        ver, _, _, _ = runner._verify_forward(
+            last, rng.integers(3, 256, (n_rows, 4)).astype(np.int32),
+            np.full(n_rows, 4, np.int32), past, tables)
+    dec, ver = dec[:, 0].float().cpu().numpy(), ver[:, 0].cpu().numpy()
+    rel = float(np.linalg.norm(ver - dec) / np.linalg.norm(dec))
+    print(f"{label}: verify forward vs decode forward at each row's first position: "
+          f"rel_l2={rel:.3e} argmax_agree={int((ver.argmax(-1) == dec.argmax(-1)).sum())}"
+          f"/{n_rows}", flush=True)
+    if not (np.isfinite(ver).all() and rel < REL_L2):
+        raise AssertionError(f"{label}: verify logits disagree with the decode step: {rel}")
+    return rel
+
+
+class MaskClock:
+    """Host time the scheduler spends on constraint masks: the masked
+    step's and the window recovery's ``[B, V]`` masks, admission masks,
+    single-token checks of window tokens and fast-forward plans
+    (outermost calls only, so nested calls count once)."""
+
+    def __init__(self):
+        from sutro_tpu_torch.engine.constrain.fsm import TokenFSM
+        from sutro_tpu_torch.engine.scheduler import ContinuousBatcher
+
+        self.ms, self.calls, self._depth, self._saved = 0.0, 0, 0, []
+        for cls, name in ((ContinuousBatcher, "_fsm_masks"),
+                          (ContinuousBatcher, "_constraint_mask"),
+                          (ContinuousBatcher, "_token_ok"),
+                          (TokenFSM, "plan_fastforward")):
+            fn = getattr(cls, name)
+            self._saved.append((cls, name, fn))
+            setattr(cls, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def timed(*a, **k):
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.ms += (time.perf_counter() - t0) * 1e3
+                    self.calls += 1
+        return timed
+
+    def close(self):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def serve_constrained(torch, runner, kernels, ngram_kernels, card: str,
+                      n_requests: int = 96, seed: int = 0) -> dict:
+    """Serve 4, on serve 2's runner after serve 2's job: a constrained
+    templated job. Every row is one shared 1,024-token template (the
+    classify system prompt at its head) and a 16-256-token suffix, 128
+    new tokens at most: 64 greedy rows under the classify template's
+    schema, 16 greedy under the extraction schema, 16 at temperature 0.7
+    and top-p 0.9 under the classify schema (the masked single step;
+    admitted first, shortest suffixes, so the later waves take the
+    speculative windows and the fast-forward). Then a short phase of 16
+    unconstrained greedy rows with repetitive prompts and
+    ``spec_ngram_draft=4`` (``verify_greedy``). ``kernels`` must launch
+    in the job, ``ngram_kernels`` in the n-gram phase."""
+    import dataclasses
+
+    from sutro_tpu_torch.engine.constrain import schema_constraint_factory
+    from sutro_tpu_torch.engine.scheduler import GenRequest
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    mcfg, ecfg = runner.mcfg, runner.ecfg
+    n_tpl = ENGINES[mcfg.name][1]
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 3)
+    text = lambda n: "".join(rng.choice(ALPHABET, int(n)))  # noqa: E731
+    head = CLASSIFY_SYSTEM_PROMPT + "\n\n"
+    template = np.asarray(tok.encode(head + text(n_tpl - len(head))), np.int32)
+    if len(template) != n_tpl:
+        raise AssertionError(f"serve4: template of {len(template)} tokens, not {n_tpl}")
+    suffix_lens = np.sort(rng.integers(16, 257, n_requests))
+    prompts = [np.concatenate([template, np.asarray(tok.encode(text(n)), np.int32)])
+               for n in suffix_lens]
+    verify_rel = [check_verify_logits(torch, runner, template, prompts[i : i + 8], rng,
+                                      f"serve4 rows {i}-{i + 7}") for i in (0, 48)]
+
+    t0 = time.monotonic()
+    factories = {"classify": schema_constraint_factory(CLASSIFY_SCHEMA, tok),
+                 "extract": schema_constraint_factory(EXTRACT_SCHEMA, tok)}
+    factory_s = time.monotonic() - t0
+    cores = {name: f.masks.core for name, f in factories.items()}
+    print(f"serve4: mask core {cores}, schema factories built in {factory_s:.2f}s "
+          f"(vocabulary {mcfg.vocab_size:,})", flush=True)
+    # rows 0-15 (the shortest suffixes) sampled, then alternately 4
+    # greedy classify rows and one greedy extraction row
+    kinds = ["sampled"] * 16 + [("classify", "classify", "classify", "classify",
+                                 "extract")[i % 5] for i in range(n_requests - 16)]
+    schema_of = {"sampled": CLASSIFY_SCHEMA, "classify": CLASSIFY_SCHEMA,
+                 "extract": EXTRACT_SCHEMA}
+    requests = []
+    for i, (p, kind) in enumerate(zip(prompts, kinds)):
+        kw = dict(temperature=0.7, top_p=0.9) if kind == "sampled" else dict(temperature=0.0)
+        requests.append(GenRequest(
+            row_id=i, prompt_ids=p, max_new_tokens=128,
+            constraint_factory=factories["extract" if kind == "extract" else "classify"],
+            **kw))
+    counts = {k: kinds.count(k) for k in schema_of}
+    if counts != {"sampled": 16, "classify": 64, "extract": 16}:
+        raise AssertionError(f"serve4: row mix {counts}")
+
+    def valid_row(runner_, r):
+        if r.error or r.finish_reason not in ("schema_complete", "stop"):
+            raise AssertionError(f"serve4 row {r.row_id}: {r.finish_reason!r} {r.error!r}")
+        errs = schema_errors(schema_of[kinds[r.row_id]], tok.decode(r.token_ids))
+        if errs:
+            raise AssertionError(f"serve4 row {r.row_id} ({kinds[r.row_id]}) is not valid "
+                                 f"under its schema: {errs}: {tok.decode(r.token_ids)!r}")
+
+    calls = {}
+    count_decode_calls(runner, calls, DECODE_ENTRIES + CONSTRAINED_ENTRIES)
+    committed = {"tokens": 0, "row_windows": 0}
+    commit = runner.commit_window
+
+    def counted_commit(handle, accepted):
+        # a window's rows that were live: a row accepts 0 .. steps
+        # tokens; inactive slots have no pages (table row of zeros)
+        live = np.asarray(handle[3][:, 0].cpu()) > 0
+        committed["tokens"] += int(np.asarray(accepted)[live].sum())
+        committed["row_windows"] += int(live.sum())
+        return commit(handle, accepted)
+
+    runner.commit_window = counted_commit
+    clock = MaskClock()
+    try:
+        results, launches, batcher, wall = run_batch(
+            torch, runner, requests, kernels, seed, stop_ids=tok.stop_ids(),
+            check_row=valid_row)
+    finally:
+        clock.close()
+    timer = batcher.timer.summary()
+    out = serve_summary(prompts, results, launches, calls, timer, wall, max(verify_rel))
+    forced = batcher.ff_forced
+    out.update(
+        verify_vs_decode_rel_l2=verify_rel, mask_core=cores, schema_factories_s=factory_s,
+        mask_host_ms=clock.ms, mask_host_calls=clock.calls,
+        masks_cached={name: len(f.masks._cache) for name, f in factories.items()},
+        ff_forced=forced, decode_tok_s_unforced=(out["generated_tokens"] - forced)
+        / timer["decode"]["total_s"],
+        window_tokens_per_row=committed["tokens"] / max(committed["row_windows"], 1),
+        rows_by_kind=counts,
+        finish_reasons={k: sum(r.finish_reason == k for r in results.values())
+                        for k in ("schema_complete", "stop")})
+    print("serve4: " + json.dumps(out), flush=True)
+
+    # n-gram speculation: 16 greedy rows whose prompts repeat a phrase
+    phrases = [text(rng.integers(12, 40)) for _ in range(16)]
+    ngram_prompts = [np.asarray(tok.encode((ph + " ") * (240 // (len(ph) + 1))), np.int32)
+                     for ph in phrases]
+    ngram_requests = [GenRequest(row_id=i, prompt_ids=p, max_new_tokens=64, temperature=0.0)
+                      for i, p in enumerate(ngram_prompts)]
+    ngram_calls = {}
+    count_decode_calls(runner, ngram_calls, ("decode_multi_async", "verify_greedy"))
+    runner.ecfg = dataclasses.replace(ecfg, spec_ngram_draft=4)
+    try:
+        ng_results, ng_launches, ng_batcher, ng_wall = run_batch(
+            torch, runner, ngram_requests, ngram_kernels, seed)
+    finally:
+        runner.ecfg = ecfg
+    ng = serve_summary(ngram_prompts, ng_results, ng_launches, ngram_calls,
+                       ng_batcher.timer.summary(), ng_wall, None)
+    ng.update(spec_drafted=ng_batcher.spec_drafted, spec_accepted=ng_batcher.spec_accepted)
+    print("serve4 n-gram: " + json.dumps(ng), flush=True)
+
+    entry_calls = {"decode_window": calls["decode_window"],
+                   "commit_window": calls["commit_window"],
+                   "verify_candidates": calls["verify_candidates"],
+                   "verify_greedy": ngram_calls["verify_greedy"] + calls["verify_greedy"],
+                   "decode_step_masked": calls["decode_step_masked"]}
+    if min(entry_calls.values()) <= 0:
+        raise AssertionError(f"serve4: a constrained entry point was not called: "
+                             f"{entry_calls}")
+    out["entry_calls"] = entry_calls
+    out["ngram"] = ng
+    print(f"serve4: card={card} prefill_tok_s={out['prefill_tok_s']:.1f} "
+          f"decode_tok_s={out['decode_tok_s']:.1f} (unforced "
+          f"{out['decode_tok_s_unforced']:.1f}, {forced} fast-forward tokens) "
+          f"mask_host_ms={clock.ms:.1f} mask_core={cores} window tokens a row "
+          f"{out['window_tokens_per_row']:.2f}/{ecfg.decode_multi_step} wall_s={wall:.2f}; "
+          f"n-gram phase "
+          f"decode_tok_s={ng['decode_tok_s']:.1f} accepted {ng['spec_accepted']}/"
+          f"{ng['spec_drafted']} drafted, wall_s={ng_wall:.2f}", flush=True)
     return out
 
 
@@ -1366,11 +1687,11 @@ def serve_int8(torch, kernels, absent, dev, n_requests: int = 96, seed: int = 0)
 
     calls = {}
     count_decode_calls(runner, calls)
-    results, launches, timer, wall = run_batch(
+    results, launches, batcher, wall = run_batch(
         torch, runner, mixed_requests(prompts), kernels, seed, absent=absent)
     if min(calls["decode_step"], calls["decode_multi_async"]) <= 0:
         raise AssertionError(f"the batch did not take both decode paths: {calls}")
-    out = serve_summary(prompts, 64, results, launches, calls, timer, wall, rel)
+    out = serve_summary(prompts, results, launches, calls, batcher.timer.summary(), wall, rel)
     out["layer0_int8_attn_max_abs"] = attn_err
     out["long_prompts"] = len(long_)
     print("serve3: " + json.dumps(out), flush=True)
@@ -1430,6 +1751,9 @@ def main() -> int:
     dense_path = [paged_decode.KERNEL, kv_write.KERNEL, flash_prefill.KERNEL]
     templated_path = [grouped_matmul.KERNEL, prefix_carry.KERNEL,
                       paged_decode.CARRY, kv_write.KERNEL, flash_prefill.KERNEL]
+    # serve 4's n-gram phase: no template, so the plain paged decode
+    ngram_path = [grouped_matmul.KERNEL, paged_decode.KERNEL, kv_write.KERNEL,
+                  flash_prefill.KERNEL]
     int8_path = [paged_decode.INT8, flash_prefill.KERNEL]
     # no silent bf16 route under an int8 pool
     int8_absent = [paged_decode.KERNEL, paged_decode.CARRY, kv_write.KERNEL]
@@ -1476,9 +1800,15 @@ def main() -> int:
           f"wall_s={served['qwen3-8b']['wall_s']:.2f}", flush=True)
     # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
     free_card(torch, "qwen3-8b")
-    s2 = served["qwen3-30b-a3b"] = serve_templated(torch, templated_path, dev)
+    s2, runner = serve_templated(torch, templated_path, dev)
+    served["qwen3-30b-a3b"] = s2
     print(f"serve2: card={card} prefill_tok_s={s2['prefill_tok_s']:.1f} "
           f"decode_tok_s={s2['decode_tok_s']:.1f} wall_s={s2['wall_s']:.2f}", flush=True)
+    # serve 4 on serve 2's runner: the 61 GB model is not loaded twice
+    s4 = serve_constrained(torch, runner, templated_path, ngram_path, card)
+    served["qwen3-30b-a3b constrained"] = s4
+    served["qwen3-30b-a3b n-gram"] = s4["ngram"]
+    del runner
     # serve 3: 33.6 GB of int8 weights and a 17.3 GB int8 pool
     free_card(torch, "qwen3-30b-a3b")
     s3 = served["qwen3-32b"] = serve_int8(torch, int8_path, int8_absent, dev)

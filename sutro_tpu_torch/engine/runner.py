@@ -23,13 +23,21 @@ waiting, and results cross to the host only where the reference fetched
 them (``decode_multi_async`` returns device tensors the scheduler chains
 the next window from).
 
+- ``decode_window`` / ``commit_window``: a fused window that leaves
+  the pages alone, so the scheduler can verify constrained rows'
+  tokens against their FSMs and commit each row's accepted prefix
+  (``allowed0`` FSM-masks the first step of rows that need it).
+- ``verify_greedy`` / ``verify_candidates``: one forward over each
+  row's last token and its draft against the paged past (n-gram
+  speculation, FSM fast-forward), greedy or candidate-restricted
+  choices per position back to the host.
+
 int8 (``EngineConfig.quantize`` / ``kv_quantize``, as in the
 reference): weight-only int8 projections (ops/quant.py, dequantized
 before each product) and int8 KV pages with per-token scales
 (engine/kvcache.py), read by the paged-decode kernel's int8 option.
 
-Not ported yet, and raising: device meshes (multi-GPU), constrained
-decoding's ``decode_window``/``commit_window``/``verify_*``, and
+Not ported yet, and raising: device meshes (multi-GPU) and
 ``embed_batch``.
 The reference's ``kv_chunk`` (TPU DMA chunking) has no counterpart, so
 ``alloc_pages == num_pages``.
@@ -46,6 +54,7 @@ from ..models import transformer
 from ..models.configs import ModelConfig
 from ..ops.quant import is_quantized, params_bytes, quantize_params, tensors
 from ..ops.sampling import (
+    NEG_INF,
     apply_penalties,
     cumulative_logprob,
     fold_in,
@@ -54,12 +63,6 @@ from ..ops.sampling import (
 from . import faults
 from .config import EngineConfig
 from .kvcache import alloc_cache, write_kv
-
-CONSTRAINED_SLICE = (
-    "constrained decoding (decode_window / commit_window / verify_*) is "
-    "the next slice of the CUDA port (ROADMAP.md)"
-)
-
 
 def next_bucket(n: int, lo: int = 16, hi: int = 1 << 20) -> int:
     b = lo
@@ -426,6 +429,7 @@ class ModelRunner:
 
     def _window_scan(
         self, last, past_len, table, rng, sampling, steps: int, pfx=None,
+        allowed0=None,
     ):
         """``steps`` trunk forwards over the invariant pages plus the
         window buffer, sampling on the device. Returns (toks [steps, B],
@@ -434,7 +438,14 @@ class ModelRunner:
         can read a slot it wrote itself. Step ``s`` sees the earlier
         steps' K/V as window slots ``< s`` (the query sits at
         ``past_len + s``). ``pfx``: shared-prefix groups as device
-        tensors (``_pfx_up``)."""
+        tensors (``_pfx_up``).
+
+        ``allowed0`` ([B, V] bool device tensor, optional) masks the
+        FIRST step's sampling only: a row whose previous window rejected
+        a token takes its FSM-masked step inside the next window. The
+        logprob stays over the unmasked logits, as on the masked
+        single step, so a row's cumulative logprob does not depend on
+        the path that committed each token."""
         B = last.shape[0]
         L = self.mcfg.num_layers
         KD = self.mcfg.num_kv_heads * self.mcfg.head_dim
@@ -456,7 +467,10 @@ class ModelRunner:
             wk[:, :, step] = k.reshape(L, B, KD)
             wv[:, :, step] = v.reshape(L, B, KD)
             step_logits = logits[:, 0]
-            cur = sample(step_logits, fold_in(rng, step), **sampling)
+            cur = sample(
+                step_logits, fold_in(rng, step),
+                allowed=allowed0 if step == 0 else None, **sampling,
+            )
             toks.append(cur)
             logps.append(cumulative_logprob(step_logits, cur))
         return torch.stack(toks), torch.stack(logps), wk, wv
@@ -523,20 +537,136 @@ class ModelRunner:
         )
 
     # ------------------------------------------------------------------
-    # later slices
+    # n-gram speculation and FSM fast-forward: verify forwards
     # ------------------------------------------------------------------
 
-    def decode_window(self, *args, **kwargs):
-        raise NotImplementedError(CONSTRAINED_SLICE)
+    def _verify_forward(self, last_tokens, drafts, draft_len, past_len, page_table):
+        """One forward over ``[B, K+1]`` known tokens (each row's last
+        token and its draft) against the paged past, K/V written for the
+        ``draft_len + 1`` valid inputs. Returns the float32 logits ``[B,
+        K+1, V]`` and each position's plain greedy token and its
+        logprob. Rejected positions' K/V become dead stores past the
+        row's accepted length (masked by ``past_len``, overwritten as
+        decode proceeds)."""
+        B, K = drafts.shape
+        ids = np.zeros((B, K + 1), np.int32)
+        ids[:, 0] = last_tokens
+        ids[:, 1:] = drafts
+        ids = self._up(ids, torch.int32)
+        valid = self._up(np.asarray(draft_len, np.int32) + 1, torch.int32)
+        start = self._up(past_len, torch.int32)
+        table = self._up(page_table, torch.int32)
+        positions = start[:, None] + torch.arange(
+            K + 1, device=self.device, dtype=torch.int32
+        )[None, :]
+        logits, _, (k, v) = transformer.forward(
+            self.mcfg, self.params, ids, positions, valid,
+            paged_past=self._paged(table), past_len=start,
+        )
+        write_kv(self.cache, k, v, table, start, valid)
+        lg = logits.float()
+        lse = torch.logsumexp(lg, dim=-1)                     # [B, C]
+        plain = torch.argmax(lg, dim=-1)
+        plain_lp = lg.gather(-1, plain[..., None])[..., 0] - lse
+        return lg, lse, plain.to(torch.int32), plain_lp
 
-    def commit_window(self, *args, **kwargs):
-        raise NotImplementedError(CONSTRAINED_SLICE)
+    def verify_greedy(
+        self,
+        last_tokens: np.ndarray,   # [B] int32
+        drafts: np.ndarray,        # [B, K] int32 (pad anything)
+        draft_len: np.ndarray,     # [B] int32 — valid draft tokens
+        past_len: np.ndarray,      # [B] int32
+        page_table: np.ndarray,    # [B, MP] int32
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Greedy verification: row b's inputs are ``[last, d0 ..
+        d_{L-1}]`` (L = draft_len[b]); position t's output is the model's
+        greedy next token after input t, and its logprob, each ``[B,
+        K+1]``. The scheduler accepts the longest matching draft prefix
+        plus the bonus token at the first mismatch; rows with draft_len
+        0 take a plain greedy step."""
+        _, _, toks, logps = self._verify_forward(
+            last_tokens, drafts, draft_len, past_len, page_table
+        )
+        return self._host(toks), self._host(logps)
 
-    def verify_greedy(self, *args, **kwargs):
-        raise NotImplementedError(CONSTRAINED_SLICE)
+    def verify_candidates(
+        self,
+        last_tokens: np.ndarray,   # [B] int32
+        drafts: np.ndarray,        # [B, K] int32 (pad anything)
+        draft_len: np.ndarray,     # [B] int32
+        cand: np.ndarray,          # [B, K+1, M] int32 (pad id 0)
+        cand_n: np.ndarray,        # [B, K+1] int32 — 0 = unplanned position
+        past_len: np.ndarray,      # [B] int32
+        page_table: np.ndarray,    # [B, MP] int32
+    ):
+        """Masked-candidate verification (FSM fast-forward): position
+        (b, j)'s choice is the argmax over its first ``cand_n[b, j]``
+        candidate ids, the masked-path token without shipping ``[B,
+        K+1, V]`` masks. Candidate logprobs are taken against the FULL
+        vocabulary's softmax, the distribution the masked single step
+        reports. Returns ``(cand_toks, cand_logps, plain_toks,
+        plain_logps)``, each ``[B, K+1]``; the plain greedy choices
+        serve the rows without a plan."""
+        lg, lse, plain, plain_lp = self._verify_forward(
+            last_tokens, drafts, draft_len, past_len, page_table
+        )
+        cand = self._up(cand, torch.int64)
+        M = cand.shape[2]
+        ok = (
+            torch.arange(M, device=self.device)[None, None, :]
+            < self._up(cand_n, torch.int32)[..., None]
+        )
+        g = lg.gather(2, cand).masked_fill(~ok, NEG_INF)
+        ctok = cand.gather(2, torch.argmax(g, dim=-1, keepdim=True))   # [B, C, 1]
+        clp = lg.gather(2, ctok)[..., 0] - lse
+        return (
+            self._host(ctok[..., 0].to(torch.int32)), self._host(clp),
+            self._host(plain), self._host(plain_lp),
+        )
 
-    def verify_candidates(self, *args, **kwargs):
-        raise NotImplementedError(CONSTRAINED_SLICE)
+    # ------------------------------------------------------------------
+    # speculative window decode (constrained rows)
+    # ------------------------------------------------------------------
+
+    def decode_window(
+        self,
+        last_tokens: np.ndarray,     # [B] int32
+        past_len: np.ndarray,        # [B] int32
+        page_table: np.ndarray,      # [B, MP] int32
+        rng: int,
+        temperature: np.ndarray,     # [B]
+        top_p: np.ndarray,           # [B]
+        steps: int,
+        top_k: Optional[np.ndarray] = None,
+        allowed0: Optional[np.ndarray] = None,  # [B, V] bool, step 0 only
+        pfx=None,  # ((pages [Pp], pfx_len [B]), ...) split-prefix groups
+    ):
+        """A fused window that leaves the pages alone: returns (tokens
+        [steps, B], logprobs [steps, B], handle). The scheduler verifies
+        constrained rows' tokens on the host, then calls
+        ``commit_window(handle, accepted)`` to write each row's accepted
+        prefix, so a rejected suffix costs nothing. The handle holds the
+        window's K/V and device copies of ``past_len`` and the page
+        table (the caller's arrays may be live views that change before
+        the commit)."""
+        if faults.ACTIVE is not None:
+            faults.inject("runner.decode")
+        B = len(last_tokens)
+        past = self._up(past_len, torch.int32)
+        table = self._up(page_table, torch.int32)
+        toks, logps, wk, wv = self._window_scan(
+            self._up(last_tokens, torch.int32), past, table, rng,
+            self._sampling_args(temperature, top_p, top_k, B), steps,
+            pfx=self._pfx_up(pfx),
+            allowed0=None if allowed0 is None else self._up(allowed0, torch.bool),
+        )
+        return self._host(toks), self._host(logps), (wk, wv, past, table)
+
+    def commit_window(self, handle, accepted: np.ndarray) -> None:
+        """Write each row's first ``accepted[b]`` (0 .. steps) window
+        tokens' K/V into the page pool."""
+        wk, wv, past, table = handle
+        write_kv(self.cache, wk, wv, table, past, self._up(accepted, torch.int32))
 
     def embed_batch(self, rows: list) -> np.ndarray:
         raise NotImplementedError(

@@ -2413,16 +2413,39 @@ class ContinuousBatcher:
         shortest-first admission order, and the job's shared-prefix
         prefill."""
         pending = []
+        # lazy-constraint jobs share one factory: probe its room ONCE
+        # per job instead of instantiating an FSM per row here
+        factory_room: Dict[int, int] = {}
         for req in ctx.pending:
-            # constrained decoding (engine/constrain) is the next slice
-            # of the port: refuse such a row up front instead of
-            # decoding it unconstrained
-            if req.constraint is not None or req.constraint_factory is not None:
-                raise NotImplementedError(
-                    "constrained decoding is not ported to the CUDA engine "
-                    "yet (ROADMAP.md); this request carries a constraint"
-                )
+            # truncation must leave enough generation room to honor the
+            # row's schema: a prompt that fills the context would leave
+            # a constrained row 1 token ("{") and silently break the
+            # guaranteed-JSON contract. Plain rows keep >=1 token.
             need = 1
+            if req.constraint is not None:
+                from .constrain.fsm import constraint_room
+
+                need = constraint_room(req.constraint)
+            elif req.constraint_factory is not None:
+                from .constrain.fsm import constraint_room
+
+                key = id(req.constraint_factory)
+                if key not in factory_room:
+                    try:
+                        factory_room[key] = constraint_room(
+                            req.constraint_factory()
+                        )
+                    except Exception:  # noqa: BLE001 — row isolation
+                        # a failing factory surfaces PER ROW at
+                        # materialization (retry/quarantine); the probe
+                        # only loses the schema-room truncation reserve
+                        logger.warning(
+                            "constraint probe failed at job start; "
+                            "surfacing per-row at admission",
+                            exc_info=True,
+                        )
+                        factory_room[key] = 1
+                need = factory_room[key]
             max_prompt = self.ecfg.max_context() - need
             if len(req.prompt_ids) > max_prompt:
                 if req.allow_truncate and max_prompt > 0:

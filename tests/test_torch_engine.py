@@ -155,17 +155,6 @@ def test_runner_refuses_unported_options(shared_params, field, value):
         )
 
 
-def test_constrained_request_raises(shared_params):
-    _, tparams = shared_params
-    tr = t_runner.ModelRunner(MCFG, EngineConfig(**ENGINE), tparams, device="cpu")
-    req = t_sched.GenRequest(
-        row_id=0, prompt_ids=np.array([5, 6], np.int32),
-        constraint_factory=lambda: None,
-    )
-    with pytest.raises(NotImplementedError, match="constrained decoding"):
-        _run(t_runner, t_sched, tr, [req])
-
-
 def test_pages_round_trip(shared_params):
     _, tparams = shared_params
     runner = t_runner.ModelRunner(MCFG, EngineConfig(**ENGINE), tparams, device="cpu")

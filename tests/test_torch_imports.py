@@ -36,6 +36,11 @@ MODULES = (
     "sutro_tpu_torch.engine.scheduler",
     "sutro_tpu_torch.engine.weights",
     "sutro_tpu_torch.engine.stepprofile",
+    "sutro_tpu_torch.engine.constrain.nfa",
+    "sutro_tpu_torch.engine.constrain.regex",
+    "sutro_tpu_torch.engine.constrain.schema",
+    "sutro_tpu_torch.engine.constrain.fsm",
+    "sutro_tpu_torch.engine.constrain.cpp",
 )
 
 
@@ -63,7 +68,7 @@ def test_port_imports_with_jax_and_reference_blocked():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 18
+    assert int(out.stdout.strip()) >= 24
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

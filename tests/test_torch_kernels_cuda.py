@@ -27,6 +27,12 @@ to bf16 for the value product in the attention kernels.
   decode rows and across a row tile, H and F not multiples of the tiles,
   and Qwen3-30B-A3B's expert widths (gate/up and down) from a few decode
   rows to a prefill's 32,768;
+- the KV page write (bit-exact: it only copies): tokens bound for page
+  0 and past the table's end (dropped), a chunk of a pool's layers
+  written through a slice, padding rows, a prefill chunk, a full decode
+  window written as one call, and a speculative window's commit with
+  per-row accepted counts of 0, of 1 < a < steps and of steps in one
+  call, at Qwen3-8B's and Qwen3-30B-A3B's widths;
 - the combinations each wrapper refuses raise.
 """
 
@@ -38,6 +44,7 @@ import torch
 
 from sutro_tpu_torch.ops import flash_prefill as fp
 from sutro_tpu_torch.ops import grouped_matmul as gm
+from sutro_tpu_torch.ops import kv_write as kw
 from sutro_tpu_torch.ops import paged_decode as pd
 from sutro_tpu_torch.ops import prefix_carry as pc
 
@@ -376,3 +383,97 @@ def test_grouped_matmul_matches_plain(dev, name):
     torch.cuda.synchronize()
     _close(got, want)
     assert not got[n:].any(), "rows past the last group must be zero"
+
+
+# ---------------------------------------------------------------------------
+# KV page write
+# ---------------------------------------------------------------------------
+
+
+def _kv_cases():
+    """name: (L, KD, PS, MP, starts, valid lengths, chunk tokens Tb,
+    layers written of the pool or None for all, table edit). Tables hold
+    distinct random pages >= 1 unless the edit zeroes entries."""
+    steps = 8
+    return {
+        # 8 rows, one entry of each table zeroed: the tokens bound for
+        # page 0 are dropped, the rest land
+        "page0_entries": (3, 1024, 64, 8, [0, 60, 64, 100, 130, 0, 5, 190],
+                          [64, 8, 64, 30, 60, 1, 64, 2], 64, None, "zero_one_entry"),
+        # rows whose chunk runs past the table's last page
+        "past_table_end": (2, 512, 64, 4, [200, 250, 255, 0], [64, 64, 1, 64], 64, None, None),
+        # a chunk of the pool's layers (a contiguous slice) written: the
+        # other layers stay as they were
+        "layer_chunk": (48, 512, 64, 24, [0, 1000, 1471, 64], [8, 8, 8, 8], 8, (16, 32), None),
+        "one_layer": (36, 1024, 64, 32, [5, 2040, 700], [8, 8, 8], 8, (35, 36), None),
+        # padding rows (zero table, valid 0) between live ones
+        "padding_rows": (4, 1024, 64, 32, [0, 0, 77, 0, 1500, 0], [12, 0, 12, 0, 12, 0], 12,
+                         None, "zero_odd_rows"),
+        # a prefill chunk: 4 rows of up to 500 tokens, padded tails
+        "prefill_chunk": (2, 512, 64, 24, [0, 0, 1024, 0], [500, 37, 256, 499], 500, None, None),
+        # a full decode window of 64 rows x 8 steps in one call (4 pages
+        # a row keep the pools small; the window's rows land anywhere in
+        # them)
+        "window_qwen3_30b": (48, 512, 64, 4, "ragged64", [steps] * 64, steps, None, None),
+        "window_qwen3_8b": (36, 1024, 64, 4, "ragged64", [steps] * 64, steps, None, None),
+        # a speculative window's commit: per-row accepted counts of 0,
+        # of 1 < a < steps, and of steps, in one call
+        "commit_mixed_accepted": (48, 512, 64, 4, "ragged64",
+                                  [0, 3, steps, 1, 7, 0, 2, steps] * 8, steps, None, None),
+    }
+
+
+@pytest.mark.parametrize("name", list(_kv_cases()))
+def test_kv_write_matches_plain(dev, name):
+    L, KD, PS_, MP_, starts, valid, Tb, layers, edit = _kv_cases()[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if starts == "ragged64":
+        starts = rng.integers(0, MP_ * PS_ - Tb, 64).tolist()
+    B = len(starts)
+    NP = 1 + B * MP_
+    table = rng.permutation(np.arange(1, NP)).reshape(B, MP_).astype(np.int32)
+    if edit == "zero_one_entry":
+        for b, s in enumerate(starts):
+            table[b, (s + valid[b] // 2) // PS_] = 0
+    elif edit == "zero_odd_rows":
+        table[1::2] = 0
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    pools = [torch.randn((L, NP, PS_, KD), **bf) for _ in range(2)]
+    lo, hi = layers or (0, L)
+    new = [torch.randn((hi - lo, B, Tb, KD), **bf) for _ in range(2)]
+    meta = [torch.as_tensor(np.asarray(x, np.int32), device=dev)
+            for x in (table, starts, valid)]
+    got = [p.clone() for p in pools]
+    want = [p.clone() for p in pools]
+    kw.kv_write(*(p[lo:hi] for p in got), *new, *meta)
+    kw.kv_write_plain(*(p[lo:hi] for p in want), *new, *meta)
+    torch.cuda.synchronize()
+    for a, b, p in zip(got, want, pools):
+        assert torch.equal(a, b)
+        assert torch.equal(a[:lo], p[:lo]) and torch.equal(a[hi:], p[hi:])
+        assert torch.equal(a[:, 0], p[:, 0]), "page 0 must not be written"
+    # the plain version wrote what it should: every live token's row
+    for b, (s, n) in enumerate(zip(starts, valid)):
+        for t in (0, n - 1) if n else ():
+            pos = s + t
+            if pos // PS_ < MP_ and table[b, pos // PS_] > 0:
+                page = int(table[b, pos // PS_])
+                assert torch.equal(got[0][lo:hi, page, pos % PS_], new[0][:, b, t])
+
+
+def test_kv_write_refuses(dev):
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    pools = [torch.zeros((2, 4, 8, 64), **bf) for _ in range(2)]
+    new = [torch.zeros((2, 1, 3, 64), **bf) for _ in range(2)]
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    meta = [i32([[1, 2]]), i32([0]), i32([3])]
+    with pytest.raises(TypeError):
+        kw.kv_write(*pools, *(t.float() for t in new), *meta)
+    with pytest.raises(TypeError):
+        kw.kv_write(*pools, *new, meta[0].long(), *meta[1:])
+    with pytest.raises(ValueError):
+        kw.kv_write(*pools, new[0][:, :, :2], new[1], *meta)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.zeros((2, 1, 64, 3), **bf).transpose(2, 3)
+        kw.kv_write(*pools, strided, new[1], *meta)
