@@ -22,7 +22,9 @@ Phases, in order; any failure raises and exits non-zero:
    time the card could take): paged decode, the page write and flash
    prefill at Qwen3-8B shapes (NH=32, KVH=8, Dh=128, PS=64, B=64); the
    prefix carry and the paged decode with the carry at Qwen3-30B-A3B
-   shapes (B=64, NH=32, KVH=4, 1,024-token shared prefix), the carry's
+   shapes (B=64, NH=32, KVH=4, 1,024-token shared prefix) and at serve
+   5's (NH=32 over KVH=8 behind the classify prompt's 5 shared pages;
+   held only), the carry's
    yardstick being the memory-efficient SDPA with its log-sum-exp, the
    carry also timed at a 4,096-token template, with its pages cold
    (rotated past the L2) and at forced split counts; the grouped GEMM at
@@ -45,7 +47,31 @@ Phases, in order; any failure raises and exits non-zero:
    have launched during this run, the run must take both the
    single-step and the fused-window decode paths, and prefill logits of
    4 rows must match a cache-free forward through the plain attention;
-5. serve 2, after serve 1's runner is freed: a templated batch job on
+5. serve 5, after serve 1 and before serve 2, through the port's
+   façade and job API: serve 1's parameters (checksummed leaf by leaf)
+   written as an HF checkpoint (bf16 shards of ~4 GB and an index, by
+   the smoke's own few lines) under a temporary ``SUTRO_HOME`` (which
+   must have room for it), serve 1's runner freed, ``$SUTRO_HOME/engine.json`` written (serve 1's geometry,
+   ``prefix_split``, ``weights_dir``), then ``import sutro_tpu_torch as
+   so``: a classify job A (the classify template's prompt and schema,
+   four labels with descriptions) of 48 rows of 16-400 tokens, greedy,
+   and 48 rows of 16-500 tokens as two ``so.infer`` jobs (36 greedy
+   rows; 12 at top-p 0.9 with ``random_seed_per_input``), 64 new
+   tokens, submitted back to back so that they attach to A's
+   co-batched session. All jobs must succeed with results 1:1 with
+   their inputs, every classify row valid under its schema, every other
+   row at its 64 tokens or stopped, each progress stream ending at its
+   row count, the records' row and token counts and the results' token
+   counts and finish reasons equal to the rows' finish data and sums,
+   the attached jobs' records naming A's session, every leaf of the
+   engine's runner bit-equal to serve 1's, paged decode, its carry
+   option, the prefix carry, the page write and flash prefill launched
+   by the jobs and the grouped GEMM and the int8 option not; then, on
+   the engine's runner, a decode step of two sets of 8 of job A's rows
+   must give the same layer-0 attention output (atol = rtol of the
+   kernel phase) and the same logits with and without the prefix group
+   of the classify prompt's shared pages;
+6. serve 2, after serve 5's runner is freed: a templated batch job on
    ``qwen3-30b-a3b`` (MoE, 128 experts) at full width and depth with
    ``prefix_split=True``: 96 requests sharing a 1,024-token template.
    Every row must finish, the grouped GEMM, the prefix carry, the
@@ -59,7 +85,7 @@ Phases, in order; any failure raises and exits non-zero:
    logits with and without the prefix groups, and a fused window with
    the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
-6. serve 4, on serve 2's runner after serve 2's job (the model is not
+7. serve 4, on serve 2's runner after serve 2's job (the model is not
    loaded again): a schema-constrained templated job of 96 rows, one
    shared 1,024-token template with the classify system prompt at its
    head and a 16-256-token suffix each, at most 128 new tokens: 64
@@ -75,7 +101,7 @@ Phases, in order; any failure raises and exits non-zero:
    forward's logits at each row's first position must match the
    decode forward's (two sets of 8 rows). It prints the mask core
    (native or Python) and the host time spent on masks;
-7. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+8. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
    16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
    past). Every row must finish, the int8 paged decode and flash
@@ -98,6 +124,8 @@ available. ``python3 chip_smoke.py --kernels-only`` stops after phase 3
 through their wrappers and prints one JSON line; with ``--package`` the
 ``sutro_tpu_torch`` under DIR (a parent commit's ``git archive``) is
 timed by the same code, so parent and change compare in one call.
+The engine's state lives in a temporary ``SUTRO_HOME``, removed at
+exit.
 """
 
 from __future__ import annotations
@@ -125,29 +153,52 @@ L2_BYTES = 50e6            # H100 L2 cache: inputs rotated past twice this are c
 ALPHABET = np.array(list("abcdefghijklmnopqrstuvwxyz ,.;:!?"))
 
 
-# Serve 4's schemas. The classify template's output schema is what the
-# pydantic model of sutro_tpu/templates/classification.py emits for these
-# four labels; pydantic is not on the card's machine, so the dict is
-# written out here (tests/test_torch_constrain.py pins it to the model's
-# ``model_json_schema()``, and the system prompt to the template's).
+# Serve 4's and serve 5's classify labels; the system prompt and output
+# schema come from the classify template's own function (classify_job)
 CLASSIFY_LABELS = ("positive", "negative", "neutral", "mixed")
-CLASSIFY_SCHEMA = {
-    "$defs": {"ClassLabel": {"enum": list(CLASSIFY_LABELS), "title": "ClassLabel",
-                             "type": "string"}},
-    "properties": {
-        "scratchpad": {"maxLength": 400, "title": "Scratchpad", "type": "string"},
-        "classification": {"$ref": "#/$defs/ClassLabel"},
-    },
-    "required": ["scratchpad", "classification"],
-    "title": "ClassificationOutput",
-    "type": "object",
-}
-CLASSIFY_SYSTEM_PROMPT = (
-    "You are an expert classifier. Classify the user's input into exactly one of the "
-    "following classes:\n" + "".join(f"- {label}\n" for label in CLASSIFY_LABELS)
-    + "\nFirst think briefly in the scratchpad, then answer with the chosen class label, "
-    "exactly as written above."
-)
+
+
+def classify_job(classes=CLASSIFY_LABELS):
+    """(system prompt, output schema) of a classify job over ``classes``
+    (labels, or labels -> descriptions): what ``so.classify`` submits,
+    built by the template's own function (pydantic is not on the card's
+    machine; the template writes pydantic's schema as a dict)."""
+    from sutro_tpu_torch.templates.classification import _prompt_and_schema
+
+    return _prompt_and_schema(classes if isinstance(classes, dict) else list(classes))
+
+
+# serve 5's classify job: its labels with their descriptions
+FACADE_CLASSES = {"positive": "the writer likes it", "negative": "the writer dislikes it",
+                  "neutral": "no opinion either way", "mixed": "both likes and dislikes"}
+
+
+def shared_head(prompts, ps: int) -> np.ndarray:
+    """The page-aligned head that every prompt shares, as the scheduler's
+    ``_setup_prefix`` finds it: at most one token short of the shortest
+    prompt, cut to whole pages of ``ps`` tokens."""
+    first = np.asarray(prompts[0])
+    lcp = min(len(p) for p in prompts) - 1
+    for p in prompts[1:]:
+        neq = np.nonzero(first[:lcp] != np.asarray(p)[:lcp])[0]
+        lcp = int(neq[0]) if len(neq) else lcp
+    return first[: max(lcp, 0) // ps * ps]
+
+
+def facade_prefix_pages() -> int:
+    """Pages of the head that serve 5's classify prompts share on
+    qwen3-8b (Qwen3's chat frame around the classify system prompt,
+    byte tokenizer): the prefix its carry kernels read."""
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer, encode_chat_batch
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    mcfg = MODEL_CONFIGS["qwen3-8b"]
+    prompt, _ = classify_job(FACADE_CLASSES)
+    rows = encode_chat_batch(ByteTokenizer(vocab_size=mcfg.vocab_size), ["x" * 16, "y" * 16],
+                             prompt, mcfg.chat_template)
+    return len(shared_head(rows, PS)) // PS
+
+
 # an extraction job's schema: an integer, a boolean, an array of strings
 # and a nested object, all required
 EXTRACT_SCHEMA = {
@@ -168,9 +219,10 @@ EXTRACT_SCHEMA = {
 
 
 def schema_errors(schema: dict, text: str) -> list:
-    """What is wrong with ``text`` under one of serve 4's two schemas:
-    not JSON, a required key missing, a value of the wrong type, a label
-    outside the enum. Empty when the text is valid."""
+    """What is wrong with ``text`` under a classify schema (the one of
+    ``classify_job``) or the extraction schema: not JSON, a required key
+    missing, a value of the wrong type, a label outside the enum. Empty
+    when the text is valid."""
     try:
         obj = json.loads(text)
     except ValueError as e:
@@ -178,9 +230,10 @@ def schema_errors(schema: dict, text: str) -> list:
     if not isinstance(obj, dict):
         return ["not an object"]
     is_int = lambda v: isinstance(v, int) and not isinstance(v, bool)  # noqa: E731
-    if schema is CLASSIFY_SCHEMA:
+    if "classification" in schema["properties"]:
+        labels = schema["$defs"]["ClassLabel"]["enum"]
         checks = {"scratchpad": lambda v: isinstance(v, str) and len(v) <= 400,
-                  "classification": lambda v: v in CLASSIFY_LABELS}
+                  "classification": lambda v: v in labels}
     else:
         checks = {"count": is_int, "urgent": lambda v: isinstance(v, bool),
                   "tags": lambda v: isinstance(v, list) and len(v) <= 4
@@ -685,21 +738,19 @@ def carry_split_sweep(torch, pc, carry_args) -> dict:
     return out
 
 
-def kernel_prefix_split(rng, torch, dev) -> list:
-    """The prefix carry, and the paged decode started from it, against
-    their plain versions: the carry kernel plus the decode kernel with
-    pfx_cnt must equal the plain decode over the full table."""
-    from sutro_tpu_torch.ops import paged_decode as pd
-    from sutro_tpu_torch.ops import prefix_carry as pc
-
-    x = _prefix_inputs(rng, torch, dev)
+def check_carry(torch, pc, pd, x, dev, tag: str = "") -> tuple:
+    """The carry kernel on ``x`` (windows 0 and 600, and its page list
+    padded with page 0) and the paged decode started from each carry,
+    against their plain versions: the carry kernel plus the decode
+    kernel with pfx_cnt must equal the plain decode over the full table.
+    Returns (carry errors, decode errors, the window-0 carry)."""
     pool = (x["q"], x["k_pages"], x["v_pages"])
     padded = torch.cat([x["pages"], torch.zeros_like(x["pages"])])  # page-0 padding
-    carry_errs, dec_errs = {}, {}
-    carries = {}
+    carry_errs, dec_errs, carries = {}, {}, {}
     for name, pages, window in (("window0", x["pages"], 0),
                                 ("window600_cuts_prefix", x["pages"], 600),
                                 ("padded_pages", padded, 0)):
+        name = tag + name
         args = (*pool, pages, x["pfx_len"], x["q_pos"], window)
         got = pc.prefix_attention_carry(*args)
         want = pc.prefix_attention_carry_plain(*args)
@@ -715,15 +766,35 @@ def kernel_prefix_split(rng, torch, dev) -> list:
     base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
             x["k_cur"], x["v_cur"])
     win = dict(win_k=x["win_k"], win_v=x["win_v"], win_len=x["win_len"])
-    for name in ("window0", "window600_cuts_prefix"):
+    for name in (tag + "window0", tag + "window600_cuts_prefix"):
         (m0, l0, acc0), window = carries[name]
         got = pd.paged_decode_attention(*base, window, **win, pfx_cnt=x["pfx_cnt"],
                                         m0=m0, l0=l0, acc0=acc0)
         want = pd.paged_decode_plain(*base, window, **win)
         torch.cuda.synchronize()
         dec_errs[name] = check_close(f"paged_decode_carry[{name}]", got, want)
+    return carry_errs, dec_errs, carries[tag + "window0"][0]
 
-    (m0, l0, acc0), _ = carries["window0"]
+
+def kernel_prefix_split(rng, torch, dev) -> list:
+    """The prefix carry, and the paged decode started from it, against
+    their plain versions (``check_carry``) at serve 2's shape and at
+    serve 5's (qwen3-8b's NH=32 over KVH=8 behind the classify prompt's
+    shared pages); timed at serve 2's."""
+    from sutro_tpu_torch.ops import paged_decode as pd
+    from sutro_tpu_torch.ops import prefix_carry as pc
+
+    x = _prefix_inputs(rng, torch, dev)
+    carry_errs, dec_errs, (m0, l0, acc0) = check_carry(torch, pc, pd, x, dev)
+    y = _prefix_inputs(rng, torch, dev, nh=NH, kvh=KVH, mp=MP, n_pfx=facade_prefix_pages())
+    more = check_carry(torch, pc, pd, y, dev, "qwen3_8b_classify_")
+    carry_errs.update(more[0])
+    dec_errs.update(more[1])
+    del y, more
+    base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
+            x["k_cur"], x["v_cur"])
+    win = dict(win_k=x["win_k"], win_v=x["win_v"], win_len=x["win_len"])
+    pool = (x["q"], x["k_pages"], x["v_pages"])
     carry_args = (*pool, x["pages"], x["pfx_len"], x["q_pos"], 0)
     dec_kw = dict(**win, pfx_cnt=x["pfx_cnt"], m0=m0, l0=l0, acc0=acc0)
     ms_c = time_ms(lambda: pc.prefix_attention_carry(*carry_args))
@@ -1180,8 +1251,9 @@ def serve_summary(prompts, results, launches, calls, timer, wall, rel) -> dict:
                 launches=launches, logits_rel_l2=rel, timer=timer)
 
 
-def serve(torch, kernels, dev, n_requests: int = 96, seed: int = 0) -> dict:
-    """Serve 1: qwen3-8b, prompts of 16-500 tokens."""
+def serve(torch, kernels, dev, n_requests: int = 96, seed: int = 0):
+    """Serve 1: qwen3-8b, prompts of 16-500 tokens. Returns the summary
+    and the runner (serve 5 writes its parameters as a checkpoint)."""
     from sutro_tpu_torch.engine.config import EngineConfig
     from sutro_tpu_torch.engine.runner import ModelRunner
     from sutro_tpu_torch.engine.stepprofile import ENGINES
@@ -1215,7 +1287,7 @@ def serve(torch, kernels, dev, n_requests: int = 96, seed: int = 0) -> dict:
         raise AssertionError(f"the batch did not take both decode paths: {calls}")
     out = serve_summary(prompts, results, launches, calls, batcher.timer.summary(), wall, rel)
     print("serve: " + json.dumps(out), flush=True)
-    return out
+    return out, runner
 
 
 def prefill_template_rows(runner, template, rows, room: int = 1) -> np.ndarray:
@@ -1456,7 +1528,8 @@ def serve_constrained(torch, runner, kernels, ngram_kernels, card: str,
     tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
     rng = np.random.default_rng(seed + 3)
     text = lambda n: "".join(rng.choice(ALPHABET, int(n)))  # noqa: E731
-    head = CLASSIFY_SYSTEM_PROMPT + "\n\n"
+    classify_prompt, classify_schema = classify_job()
+    head = classify_prompt + "\n\n"
     template = np.asarray(tok.encode(head + text(n_tpl - len(head))), np.int32)
     if len(template) != n_tpl:
         raise AssertionError(f"serve4: template of {len(template)} tokens, not {n_tpl}")
@@ -1467,7 +1540,7 @@ def serve_constrained(torch, runner, kernels, ngram_kernels, card: str,
                                       f"serve4 rows {i}-{i + 7}") for i in (0, 48)]
 
     t0 = time.monotonic()
-    factories = {"classify": schema_constraint_factory(CLASSIFY_SCHEMA, tok),
+    factories = {"classify": schema_constraint_factory(classify_schema, tok),
                  "extract": schema_constraint_factory(EXTRACT_SCHEMA, tok)}
     factory_s = time.monotonic() - t0
     cores = {name: f.masks.core for name, f in factories.items()}
@@ -1477,7 +1550,7 @@ def serve_constrained(torch, runner, kernels, ngram_kernels, card: str,
     # greedy classify rows and one greedy extraction row
     kinds = ["sampled"] * 16 + [("classify", "classify", "classify", "classify",
                                  "extract")[i % 5] for i in range(n_requests - 16)]
-    schema_of = {"sampled": CLASSIFY_SCHEMA, "classify": CLASSIFY_SCHEMA,
+    schema_of = {"sampled": classify_schema, "classify": classify_schema,
                  "extract": EXTRACT_SCHEMA}
     requests = []
     for i, (p, kind) in enumerate(zip(prompts, kinds)):
@@ -1698,6 +1771,363 @@ def serve_int8(torch, kernels, absent, dev, n_requests: int = 96, seed: int = 0)
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve 5: jobs through the façade, on weights loaded from a checkpoint
+# ---------------------------------------------------------------------------
+
+CKPT_SHARD_BYTES = 4e9   # HF's usual shard size
+
+
+def flat_leaves(params, prefix: str = ""):
+    """(dotted name, tensor) of every leaf of a parameter dict."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            yield from flat_leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def leaf_checksums(torch, params) -> dict:
+    """name -> (sum of the leaf's 16/32-bit words, sum of each word times
+    its position mod 65521 plus 1), computed on the card in chunks of
+    2^26 words: a changed, moved or swapped word changes the pair."""
+    out = {}
+    for name, t in flat_leaves(params):
+        words = t.reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+        s1 = s2 = 0
+        for lo in range(0, words.numel(), 1 << 26):
+            w = words[lo : lo + (1 << 26)].to(torch.int64)
+            pos = torch.arange(lo, lo + w.numel(), device=w.device, dtype=torch.int64)
+            s1 += int(w.sum())
+            s2 += int((w * (pos % 65521 + 1)).sum())
+        out[name] = (str(t.dtype), tuple(t.shape), s1, s2)
+    return out
+
+
+def hf_tensors(params, mcfg) -> list:
+    """[(HF name, tensor)] of a dense Qwen3 parameter dict in the layout
+    ``load_checkpoint`` reads: projections back to ``[out, in]`` (views;
+    made contiguous one at a time by the writer). Every leaf is used."""
+    lay, used = params["layers"], {"embed", "final_norm"}
+
+    def leaf(key, i):
+        used.add(f"layers.{key}")
+        return lay[key][i]
+
+    out = [("model.embed_tokens.weight", params["embed"]),
+           ("model.norm.weight", params["final_norm"])]
+    if "lm_head" in params:
+        out.append(("lm_head.weight", params["lm_head"].T))
+        used.add("lm_head")
+    for i in range(mcfg.num_layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", leaf("attn_norm", i)),
+                (p + "post_attention_layernorm.weight", leaf("mlp_norm", i)),
+                (p + "self_attn.q_norm.weight", leaf("q_norm", i)),
+                (p + "self_attn.k_norm.weight", leaf("k_norm", i))]
+        out += [(p + f"self_attn.{x}_proj.weight", leaf(f"w{x}", i).T) for x in "qkvo"]
+        out += [(p + f"mlp.{x}_proj.weight", leaf(f"w_{x}", i).T)
+                for x in ("gate", "up", "down")]
+    missing = {n for n, _ in flat_leaves(params)} - used
+    if missing:
+        raise AssertionError(f"serve5: leaves the checkpoint writer does not map: {missing}")
+    return out
+
+
+def write_checkpoint(torch, params, mcfg, ckpt_dir: Path) -> dict:
+    """The parameters as an HF safetensors checkpoint of ~4 GB bf16
+    shards plus ``model.safetensors.index.json``, written by hand (an
+    8-byte little-endian header length, the JSON header, the raw
+    tensors); one tensor at a time is on the host."""
+    tensors = hf_tensors(params, mcfg)
+    shards, cur, size = [], [], 0
+    for name, t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if cur and size + nbytes > CKPT_SHARD_BYTES:
+            shards.append(cur)
+            cur, size = [], 0
+        cur.append((name, t))
+        size += nbytes
+    shards.append(cur)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    weight_map, total = {}, 0
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {"__metadata__": {"format": "pt"}}, 0
+        for name, t in shard:
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + n]}
+            off += n
+            weight_map[name] = fname
+        head = json.dumps(header).encode()
+        head += b" " * (-len(head) % 8)
+        with open(ckpt_dir / fname, "wb") as f:
+            f.write(len(head).to_bytes(8, "little"))
+            f.write(head)
+            for name, t in shard:
+                if t.dtype != torch.bfloat16:
+                    raise AssertionError(f"serve5: {name} is {t.dtype}, not bfloat16")
+                f.write(t.contiguous().view(torch.int16).cpu().numpy().data)
+        total += off
+    (ckpt_dir / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return {"bytes": total, "shards": len(shards), "tensors": len(tensors)}
+
+
+def checkpoint_root(home: Path, need: float) -> Path:
+    """Where the checkpoint goes: under ``home`` (the temporary
+    ``SUTRO_HOME``, removed at exit), which must have room for ``need``
+    bytes and a tenth more."""
+    import shutil
+
+    free = shutil.disk_usage(home).free
+    print(f"serve5: {free / 1e9:.1f} GB free under {home} for a {need / 1e9:.1f} GB "
+          "checkpoint", flush=True)
+    if free <= 1.1 * need:
+        raise AssertionError(f"serve5: no room for the checkpoint under {home}")
+    return home / "weights"
+
+
+def _record_s(rec: dict, a: str, b: str) -> float:
+    from datetime import datetime
+
+    return (datetime.fromisoformat(rec[b]) - datetime.fromisoformat(rec[a])).total_seconds()
+
+
+def serve_facade(torch, runners: list, kernels, absent, card: str, home: Path,
+                 n_rows: int = 48, seed: int = 0) -> dict:
+    """Serve 5: serve 1's qwen3-8b parameters written as an HF checkpoint,
+    then jobs through ``import sutro_tpu_torch as so`` on an engine that
+    loads it (``$SUTRO_HOME/engine.json``: serve 1's geometry,
+    ``prefix_split`` and ``weights_dir``). Job A: a classify job (the
+    template's prompt and schema, four labels with descriptions) of
+    ``n_rows`` rows of 16-400 tokens, greedy, at most 96 new tokens (or
+    the schema's room). Job B: ``n_rows`` rows of 16-500 tokens, 64 new
+    tokens, as two ``so.infer`` jobs: three in four rows greedy, one in
+    four at temperature 0.7 and top-p 0.9 with ``random_seed_per_input``
+    (sampling parameters are a job's, not a row's). Both submitted
+    before A starts, so B's jobs attach to A's co-batched session.
+    Then, on the engine's runner, ``check_split_decode`` over job A's
+    shared head and two sets of 8 of its rows. ``runners`` holds serve 1's runner, which is taken out and freed
+    here once the checkpoint is written (the caller keeps no other
+    reference)."""
+    import gc
+    import shutil
+    import threading
+
+    import sutro_tpu_torch as so
+    from sutro_tpu_torch.engine import api, weights
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer, encode_chat_batch
+
+    runner = runners.pop()
+    mcfg = runner.mcfg
+    t0 = time.monotonic()
+    want = leaf_checksums(torch, runner.params)
+    sum_s = time.monotonic() - t0
+    need = float(sum(t.numel() * t.element_size() for _, t in flat_leaves(runner.params)))
+    root = checkpoint_root(home, need)
+    t0 = time.monotonic()
+    ckpt = write_checkpoint(torch, runner.params, mcfg, root / mcfg.name)
+    write_s = time.monotonic() - t0
+    print(f"serve5: checkpoint of {ckpt['tensors']} tensors, {ckpt['bytes'] / 1e9:.2f} GB in "
+          f"{ckpt['shards']} shards written to {root} in {write_s:.1f}s "
+          f"(checksums {sum_s:.1f}s)", flush=True)
+    runner = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve5: serve 1's runner freed: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          "allocated", flush=True)
+    (home / "engine.json").write_text(json.dumps(
+        {**ENGINES[mcfg.name][0], "prefix_split": True, "weights_dir": str(root), "seed": seed}))
+
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 5)
+    text = lambda n: "".join(rng.choice(ALPHABET, int(n)))  # noqa: E731
+    prompt, schema = classify_job(FACADE_CLASSES)
+    rows_a = [text(n) for n in rng.integers(16, 401, n_rows)]
+    rows_b = [text(n) for n in rng.integers(16, 501, n_rows)]
+    jobs = {  # name -> (rows, infer kwargs)
+        "A": (rows_a, dict(output_schema=schema, system_prompt=prompt,
+                           sampling_params={"temperature": 0.0, "max_new_tokens": 96})),
+        "B": ([r for i, r in enumerate(rows_b) if i % 4 != 3],
+              dict(sampling_params={"temperature": 0.0, "max_new_tokens": 64})),
+        "B top-p": ([r for i, r in enumerate(rows_b) if i % 4 == 3],
+                    dict(random_seed_per_input=True,
+                         sampling_params={"temperature": 0.7, "top_p": 0.9,
+                                          "max_new_tokens": 64})),
+    }
+
+    load = {}
+    real_load = weights.load_checkpoint
+
+    def timed_load(*a, **k):
+        t = time.monotonic()
+        try:
+            return real_load(*a, **k)
+        finally:
+            load["s"] = time.monotonic() - t
+
+    # each row's finish data as the scheduler hands it to the job's
+    # session: job id -> row id -> (tokens generated, finish reason)
+    finished = {}
+    real_on_result = api._GenSession.on_result
+
+    def on_result(session, res):
+        finished.setdefault(session.job_id, {})[res.row_id] = (len(res.token_ids),
+                                                               res.finish_reason)
+        return real_on_result(session, res)
+
+    weights.load_checkpoint = timed_load
+    api._GenSession.on_result = on_result
+    for k in (*kernels, *absent):
+        k.launches = 0
+    ids, progress, threads = {}, {}, []
+    try:
+        t_submit = time.monotonic()
+        for name, (rows, kw) in jobs.items():
+            jid = so.infer(rows, model="qwen-3-8b", stay_attached=False, **kw)
+            if jid is None:
+                raise AssertionError(f"serve5: job {name} was refused")
+            ids[name] = jid
+            submit_s = time.monotonic() - t_submit
+
+            def follow(jid=jid):
+                for u in so.Sutro().engine.stream_job_progress(jid):
+                    if u["update_type"] == "progress":
+                        progress[jid] = u["result"]
+
+            threads.append(threading.Thread(target=follow, daemon=True))
+            threads[-1].start()
+        engine = so.Sutro().engine
+        while engine.job_status(ids["A"]) in ("QUEUED", "STARTING"):
+            time.sleep(0.01)
+        to_running = time.monotonic() - t_submit
+        for name, jid in ids.items():
+            if so.await_job_completion(jid, timeout=900, obtain_results=False) != jid:
+                raise AssertionError(f"serve5: job {name} ended {engine.job_status(jid)}: "
+                                     f"{engine.get_job(jid)['failure_reason']}")
+        wall = time.monotonic() - t_submit
+        for t in threads:
+            t.join(timeout=60)
+        launches = {k.name: k.launches for k in (*kernels, *absent)}
+    finally:
+        weights.load_checkpoint = real_load
+        api._GenSession.on_result = real_on_result
+        shutil.rmtree(root, ignore_errors=True)   # loaded; not needed again
+
+    out = {"card": card, "checkpoint": {**ckpt, "dir": str(root), "write_s": write_s,
+                                        "load_s": load.get("s")},
+           "submit_s": submit_s, "submit_to_running_s": to_running, "wall_s": wall,
+           "rows_per_s": sum(len(r) for r, _ in jobs.values()) / wall, "jobs": {}}
+    for name, (rows, kw) in jobs.items():
+        jid = ids[name]
+        rec = engine.get_job(jid)
+        res = engine.job_results(jid, include_inputs=True)
+        cols = engine.jobs.read_results(jid)
+        if res["inputs"] != rows or cols["row_id"] != list(range(len(rows))) or len(
+                res["outputs"]) != len(rows) or "errors" in res:
+            raise AssertionError(f"serve5: job {name}'s results are not 1:1 with its inputs")
+        # the record's row count and the results' token counts and
+        # reasons against the rows' finish data
+        fin = [finished.get(jid, {}).get(i) for i in range(len(rows))]
+        if rec["num_rows"] != len(rows) or len(finished.get(jid, {})) != len(rows) or (
+                [f and f[0] for f in fin] != cols["gen_tokens"]) or (
+                [f and f[1] for f in fin] != cols["finish_reason"]):
+            raise AssertionError(f"serve5: job {name}'s record ({rec['num_rows']} rows) or "
+                                 f"results disagree with its rows' finish data: {fin}")
+        for i, (o, (n, reason)) in enumerate(zip(res["outputs"], fin)):
+            if name == "A":
+                errs = schema_errors(schema, o)
+                if errs or reason not in ("schema_complete", "stop"):
+                    raise AssertionError(f"serve5: job A row {i} ({reason}): {errs}: {o!r}")
+            elif not (reason == "stop" or (reason == "length" and n == 64)):
+                raise AssertionError(f"serve5: job {name} row {i}: {reason!r}, {n} tokens")
+        if progress.get(jid) != len(rows):
+            raise AssertionError(f"serve5: job {name}'s progress stream ended at "
+                                 f"{progress.get(jid)}, not {len(rows)}")
+        n_in = sum(len(x) for x in encode_chat_batch(tok, rows, kw.get("system_prompt"),
+                                                   mcfg.chat_template))
+        n_out = sum(len(tok.encode(o)) for o in res["outputs"] if o)
+        if (rec["input_tokens"], rec["output_tokens"]) != (n_in, n_out):
+            raise AssertionError(f"serve5: job {name} record counts {rec['input_tokens']} in, "
+                                 f"{rec['output_tokens']} out; the rows sum to {n_in}, {n_out}")
+        perf = rec["perf"]
+        if perf["cobatch"]["session_job"] != ids["A"]:
+            raise AssertionError(f"serve5: job {name} did not run in job A's session: {perf}")
+        # output_tokens: the outputs' text encoded again, as the record
+        # counts them (random weights: mostly bytes that decode to
+        # nothing); generated_tokens: the rows' finish data
+        out["jobs"][name] = {
+            "rows": len(rows), "status": rec["status"],
+            "wall_s": _record_s(rec, "datetime_created", "datetime_completed"),
+            "run_s": _record_s(rec, "datetime_started", "datetime_completed"),
+            "input_tokens": n_in, "output_tokens": n_out,
+            "generated_tokens": sum(f[0] for f in fin),
+            "jobstore_flush_ms": 1e3 * perf.get("jobstore_flush", {}).get("total_s", 0.0),
+            "jobstore_finalize_ms": 1e3 * perf["jobstore_finalize"]["total_s"],
+            "finish_reasons": {r: cols["finish_reason"].count(r)
+                               for r in sorted(set(cols["finish_reason"]))},
+            "max_new_tokens": rec["sampling_params"]["max_new_tokens"],
+        }
+    # the session's whole timer: the perf of the job that finished last
+    last = max((engine.get_job(j) for j in ids.values()),
+               key=lambda r: r["datetime_completed"])["perf"]
+    n_in = sum(j["input_tokens"] for j in out["jobs"].values())
+    n_gen = sum(j["generated_tokens"] for j in out["jobs"].values())
+    # the records hold the session's times, not a job's: rates are the
+    # session's (every job's tokens over them)
+    out["session"] = {"prefill_s": last["prefill"]["total_s"],
+                      "decode_s": last["decode"]["total_s"],
+                      "prompt_tok_s": n_in / last["prefill"]["total_s"],
+                      "decode_tok_s": n_gen / last["decode"]["total_s"],
+                      "decode_calls": last["decode"]["count"]}
+    runner5 = engine._runner_cache[mcfg.name][0]
+    got = leaf_checksums(torch, runner5.params)
+    if got != want:
+        bad = sorted(n for n in set(got) | set(want) if got.get(n) != want.get(n))
+        raise AssertionError(f"serve5: loaded leaves differ from serve 1's: {bad[:8]}")
+    out["leaves_bit_equal"] = len(got)
+    # both carry kernels at this serve's shape (KVH=8 behind the classify
+    # prompt's shared pages), on the loaded runner after the jobs: a
+    # decode step of two sets of 8 of job A's rows with and without the
+    # prefix group, as serve 2 checks its own
+    prompts = [np.asarray(p, np.int32) for p in encode_chat_batch(
+        tok, rows_a, prompt, mcfg.chat_template)]
+    template = shared_head(prompts, runner5.ecfg.kv_page_size)
+    if len(template) // PS != facade_prefix_pages():
+        raise AssertionError(f"serve5: job A's prompts share {len(template)} tokens, not "
+                             f"the kernel phase's {facade_prefix_pages()} pages")
+    split_checks = [check_split_decode(torch, runner5, template, prompts[i : i + 8], rng,
+                                       f"serve5 rows {i}-{i + 7}") for i in (0, 8)]
+    out["shared_prefix_tokens"] = len(template)
+    out["split_vs_full_rel_l2"] = [c[0] for c in split_checks]
+    out["split_vs_full_layer0_attn_max_abs"] = [c[1] for c in split_checks]
+    del split_checks
+    out["launches"] = launches
+    for k in kernels:
+        if launches[k.name] <= 0:
+            raise AssertionError(f"serve5: kernel {k.name} was not launched by the jobs")
+    for k in absent:
+        if launches[k.name]:
+            raise AssertionError(f"serve5: kernel {k.name} launched {launches[k.name]} times")
+    print("serve5: " + json.dumps(out), flush=True)
+    print(f"serve5: card={card} submit_s={submit_s:.2f} submit_to_running_s={to_running:.2f} "
+          f"checkpoint write_s={write_s:.1f} load_s={load.get('s', float('nan')):.1f} "
+          f"wall_s={wall:.2f} rows_per_s={out['rows_per_s']:.2f} session prompt_tok_s="
+          f"{out['session']['prompt_tok_s']:.1f} decode_tok_s="
+          f"{out['session']['decode_tok_s']:.1f} " + " ".join(
+              f"[{n}: wall_s={j['wall_s']:.2f} flush+finalize_ms="
+              f"{j['jobstore_flush_ms'] + j['jobstore_finalize_ms']:.1f}]"
+              for n, j in out["jobs"].items()), flush=True)
+    # the engine's runner must go before the next serve
+    engine.close(timeout=30)
+    engine._runner_cache.clear()
+    so._instance._engine = None
+    api.reset_engine()
+    return out
+
+
 def free_card(torch, model: str) -> None:
     """The previous serve's runner must be gone before the next one."""
     import gc
@@ -1732,6 +2162,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    import os
+    import shutil
+    import tempfile
+
+    # the engine's state (jobs, engine.json, the checkpoint) lives in a
+    # temporary SUTRO_HOME, removed at exit: nothing goes to ~/.sutro
+    home = Path(tempfile.mkdtemp(prefix="sutro-smoke-home-"))
+    os.environ["SUTRO_HOME"] = str(home)
+    try:
+        return run(torch, args, home)
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+
+
+def run(torch, args, home: Path) -> int:
     import sutro_tpu_torch
 
     from sutro_tpu_torch.engine.runner import set_matmul_precision
@@ -1755,6 +2200,11 @@ def main() -> int:
     ngram_path = [grouped_matmul.KERNEL, paged_decode.KERNEL, kv_write.KERNEL,
                   flash_prefill.KERNEL]
     int8_path = [paged_decode.INT8, flash_prefill.KERNEL]
+    # serve 5: a classify job (a system prompt of > 1 page: prefix
+    # groups) with plain jobs attached, on the dense model
+    facade_path = [paged_decode.KERNEL, paged_decode.CARRY, prefix_carry.KERNEL,
+                   kv_write.KERNEL, flash_prefill.KERNEL]
+    facade_absent = [grouped_matmul.KERNEL, paged_decode.INT8]
     # no silent bf16 route under an int8 pool
     int8_absent = [paged_decode.KERNEL, paged_decode.CARRY, kv_write.KERNEL]
 
@@ -1794,10 +2244,16 @@ def main() -> int:
         print(f"card: {card}")
         return 0
 
-    served = {"qwen3-8b": serve(torch, dense_path, dev)}
-    print(f"serve: card={card} prefill_tok_s={served['qwen3-8b']['prefill_tok_s']:.1f} "
-          f"decode_tok_s={served['qwen3-8b']['decode_tok_s']:.1f} "
-          f"wall_s={served['qwen3-8b']['wall_s']:.2f}", flush=True)
+    s1, runner = serve(torch, dense_path, dev)
+    served = {"qwen3-8b": s1}
+    print(f"serve: card={card} prefill_tok_s={s1['prefill_tok_s']:.1f} "
+          f"decode_tok_s={s1['decode_tok_s']:.1f} wall_s={s1['wall_s']:.2f}", flush=True)
+    # serve 5 writes serve 1's parameters as a checkpoint, frees serve
+    # 1's runner and loads them back through the engine
+    runners = [runner]
+    del runner
+    served["qwen3-8b façade"] = serve_facade(torch, runners, facade_path, facade_absent,
+                                             card, home)
     # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
     free_card(torch, "qwen3-8b")
     s2, runner = serve_templated(torch, templated_path, dev)

@@ -1,0 +1,1341 @@
+"""LocalEngine: the in-process job API behind the ``Sutro`` client.
+
+The port of ``sutro_tpu/engine/api.py``: the Sutro wire contract
+(``POST /batch-inference``, ``GET /stream-job-progress``, ``POST
+/job-results``, ...) as direct calls on an in-process object that the
+SDK dispatches to when ``backend="tpu"`` (the default; the name is kept
+for the SDK's contract, and the engine runs on a CUDA card).
+
+Threading model: one worker thread drains a priority queue of jobs
+(priority, then submit order). The worker is the single writer for
+running jobs (jobstore invariant). Generation jobs run as co-batched
+sessions: same-model jobs submitted while one runs attach to its
+``ContinuousBatcher.run_multi`` and share its decode batch; a
+strictly-higher-priority job that cannot attach (another model, a dry
+run) makes the session yield, requeue and later resume row-granularly.
+Cancellation is a flag the scheduler polls between decode steps.
+Progress streams through the metrics bus; results and status are
+durable in the jobstore, so a new process can still see and resume
+finished or partial work. CUDA launches therefore come from the
+worker thread, not the caller's.
+
+Left out of this slice (each raises ``NotImplementedError`` naming its
+ROADMAP.md item, or is never constructed): data-parallel engines and
+the control plane, the interactive gateway and serving sessions, the
+live monitor, the KV tiers and the radix prefix store (the batcher
+gets ``prefix_store=None, kv_tier=None``), stage graphs, embedding
+jobs, ``dataset-`` and URL inputs, ``get_trace``, ``diagnose_job``,
+``fleet_state``, ``job_fleet`` and device traces (``profile_dir``).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+import time
+import traceback
+import warnings
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+from .. import telemetry
+from ..common import MODEL_CATALOG
+from ..interfaces import JobStatus
+from ..models.configs import MODEL_CONFIGS, ModelConfig
+from . import faults
+from .config import EngineConfig, load_engine_config
+from .jobstore import JobStore, estimate_cost
+from .metrics import BatchedProgress, MetricsBus, Throughput
+from .profiling import StepTimer
+from .runner import ModelRunner
+from .scheduler import ContinuousBatcher, GenRequest, GenResult, JobCtx
+from .tokenizer import BaseTokenizer, encode_chat_batch, load_tokenizer
+
+_PARTIAL_FLUSH_EVERY = 256
+
+# close() sentinel: sorts ahead of every real queue entry (priorities
+# are small non-negative ints), and its job_id None is never compared
+# because the (priority, seq) prefix is unique
+_WORKER_STOP = (-(1 << 60), -1, None)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the CUDA engine yet (ROADMAP.md §1, "
+        f"{item!r})"
+    )
+
+
+def resolve_model(model: str) -> Tuple[str, ModelConfig, Dict[str, Any]]:
+    """Public model name (or raw engine key) -> (engine_key, config, meta)."""
+    meta = MODEL_CATALOG.get(model)
+    if meta is not None:
+        key = meta["engine_key"]
+    elif model in MODEL_CONFIGS:
+        key, meta = model, {"engine_key": model, "thinking": False,
+                            "embedding": MODEL_CONFIGS[model].head == "embedding"}
+    else:
+        raise ValueError(
+            f"Unknown model {model!r}. Catalog: {sorted(MODEL_CATALOG)} "
+            f"(or an engine key from models.configs.MODEL_CONFIGS)"
+        )
+    return key, MODEL_CONFIGS[key], meta
+
+
+class LocalEngine:
+    """The job API. Its runners live on ``device``: the CUDA card by
+    default; tests pass ``device="cpu"``, which every ``ModelRunner``
+    and checkpoint load then takes (``EngineConfig`` has no device
+    field)."""
+
+    def __init__(self, ecfg: Optional[EngineConfig] = None, *, device="cuda"):
+        self.ecfg = ecfg or load_engine_config()
+        self.device = device
+        if getattr(self.ecfg, "interactive_slots", 0) > 0:
+            raise _not_ported("the interactive serving tier", "Serving and fleet")
+        # the JAX engine's enablement rule: $SUTRO_CONTROL overrides
+        # EngineConfig.control; empty/0/off/false/none mean off
+        control = os.environ.get("SUTRO_CONTROL", self.ecfg.control)
+        if str(control or "").strip().lower() not in ("", "0", "off", "false", "none"):
+            raise _not_ported("the SLO control plane", "Serving and fleet")
+        # per-job fault-injection activation (EngineConfig.fault_plan or
+        # SUTRO_FAULT_PLAN; None clears — a fresh engine with no plan
+        # runs injection-free at zero overhead)
+        faults.configure(self.ecfg.fault_plan)
+        self.jobs = JobStore(
+            io_retries=self.ecfg.io_retries,
+            io_backoff=self.ecfg.io_backoff_base,
+            io_backoff_cap=self.ecfg.io_backoff_cap,
+        )
+        self.metrics = MetricsBus()
+        self._queue: "queue.PriorityQueue" = queue.PriorityQueue()
+        self._seq = 0
+        self._cancel: set = set()
+        self._queued: set = set()
+        self._queued_prio: Dict[str, int] = {}  # queued job -> priority
+        self._current_job: Optional[str] = None
+        # jobs pulled out of the queue into the RUNNING co-batched
+        # session — busy for resume purposes
+        self._attached: set = set()
+        # job_id -> (attach engine key | None,) — immutable verdicts
+        # cached so the scheduler-cadence queue scans don't re-read
+        # job records from disk
+        self._attach_info: Dict[str, tuple] = {}
+        self._lock = threading.Lock()
+        self._runner_cache: Dict[str, Tuple[ModelRunner, BaseTokenizer]] = {}
+        self._tok_cache: Dict[str, BaseTokenizer] = {}
+        self._worker = threading.Thread(
+            target=self._worker_loop, daemon=True, name="sutro-engine"
+        )
+        self._worker.start()
+
+    # ------------------------------------------------------------------
+    # Public API (the wire endpoints, as methods)
+    # ------------------------------------------------------------------
+
+    def submit_batch_inference(self, payload: Dict[str, Any]) -> str:
+        """POST /batch-inference equivalent. Returns job_id (for dry runs the
+        job completes with a cost_estimate in its record)."""
+        model = payload.get("model", "qwen-3-4b")
+        engine_key, mcfg, meta = resolve_model(model)
+        inputs = payload["inputs"]
+        if isinstance(inputs, str) and inputs.startswith("dataset-"):
+            raise _not_ported("dataset inputs", "Datasets, URL inputs and the rest of the façade")
+        if isinstance(inputs, str) and inputs.startswith(("http://", "https://")):
+            raise _not_ported("URL inputs", "Datasets, URL inputs and the rest of the façade")
+        if not isinstance(inputs, list):
+            raise ValueError("inputs must be a list of strings")
+        if payload.get("stages") is not None:
+            raise _not_ported("stage-graph jobs", "Serving and fleet")
+        inputs = [str(x) for x in inputs]
+
+        sampling = dict(payload.get("sampling_params") or {})
+        sampling.setdefault("max_new_tokens", self.ecfg.max_new_tokens)
+        if payload.get("output_schema"):
+            # The schema guarantee ("output_schema => complete JSON")
+            # must stay feasible: raise the row cap to the schema's
+            # shortest accepting output BEFORE quota/cost accounting, so
+            # the effective cap is what gets admitted, estimated, and
+            # persisted. Schema compile errors surface when the job runs.
+            try:
+                from .constrain import schema_constraint_factory
+                from .constrain.fsm import constraint_room
+
+                probe = schema_constraint_factory(
+                    payload["output_schema"],
+                    self._get_tokenizer(engine_key, mcfg),
+                )()
+                room = constraint_room(probe)
+                if int(sampling["max_new_tokens"]) < room:
+                    sampling["max_new_tokens"] = room
+            except Exception:
+                # deliberate: a schema that fails to compile here fails
+                # the JOB with a real error when it runs; the submit
+                # path only loses the feasibility cap raise
+                logger.debug(
+                    "schema feasibility probe failed at submit; "
+                    "surfacing when the job runs",
+                    exc_info=True,
+                )
+        tenant = str(payload.get("tenant") or "default").strip() or "default"
+        # job_priority indexes the quota table, so an out-of-range value
+        # is a structured caller error (InvalidPriority) BEFORE any
+        # record exists — never silently clamped
+        job_priority = self.jobs.validate_priority(
+            payload.get("job_priority", 0)
+        )
+        rec = self.jobs.create(
+            name=payload.get("name"),
+            description=payload.get("description"),
+            model=model,
+            engine_key=engine_key,
+            num_rows=len(inputs),
+            job_priority=job_priority,
+            output_schema=payload.get("output_schema"),
+            system_prompt=payload.get("system_prompt"),
+            sampling_params=sampling,
+            truncate_rows=bool(payload.get("truncate_rows", True)),
+            dry_run=bool(payload.get("dry_run", False)),
+            random_seed_per_input=bool(
+                payload.get("random_seed_per_input", False)
+            ),
+            tenant=tenant,
+        )
+        if telemetry.ENABLED:
+            telemetry.job(rec.job_id).attrs["tenant"] = tenant
+            telemetry.TENANT_REQUESTS_TOTAL.inc(1.0, tenant, "batch")
+        self.jobs.write_inputs(rec.job_id, inputs)
+
+        # Quota gate. A BPE token consumes >= 1 UTF-8 byte, so byte
+        # length is a sound upper bound — jobs whose bound fits the
+        # quota pass immediately; only jobs near the quota pay exact
+        # tokenize-and-count.
+        max_new_total = len(inputs) * int(sampling["max_new_tokens"])
+        overhead = len(
+            (rec.system_prompt or "").encode("utf-8")
+        ) + 64  # per-row chat-template + system-prompt bound
+        bound = (
+            sum(len(r.encode("utf-8")) for r in inputs)
+            + len(inputs) * overhead
+            + max_new_total
+        )
+        # row quota first on its own: tokenizing cannot change a
+        # row-count failure, so never pay the exact pass for one
+        quota_err = self.jobs.check_quota(rec.job_priority, len(inputs), 0)
+        if quota_err is None:
+            quota_err = self.jobs.check_quota(rec.job_priority, 0, bound)
+            if quota_err:
+                tok = self._get_tokenizer(engine_key, mcfg)
+                exact = sum(
+                    len(ids)
+                    for ids in encode_chat_batch(
+                        tok,
+                        inputs,
+                        rec.system_prompt,
+                        mcfg.chat_template,
+                        threads=self.ecfg.tokenize_threads,
+                    )
+                ) + max_new_total
+                quota_err = self.jobs.check_quota(
+                    rec.job_priority, 0, exact
+                )
+        if quota_err:
+            self.jobs.append_failure_log(
+                rec.job_id, {"event": "job_failed", "error": quota_err}
+            )
+            self.jobs.set_status(
+                rec.job_id,
+                JobStatus.FAILED,
+                failure_reason={"message": quota_err},
+            )
+            return rec.job_id
+
+        self._enqueue(rec.job_priority, rec.job_id)
+        return rec.job_id
+
+    def _higher_priority_waiting(self, my_priority: int) -> bool:
+        """True when a strictly-higher-priority (lower number) job sits
+        in the queue — the preemption predicate, read under the lock so
+        it is race-free against the worker's pop/requeue windows."""
+        with self._lock:
+            return any(
+                p < my_priority for p in self._queued_prio.values()
+            )
+
+    def _attach_key(self, jid: str) -> Optional[str]:
+        """The engine key a queued job would attach under, or None when
+        it can never attach (different head, dry run, unresolvable).
+        Cached: the verdict is immutable per job, and this runs on the
+        scheduler loop's cadence."""
+        cached = self._attach_info.get(jid)
+        if cached is not None:
+            return cached[0]
+        try:
+            rec = self.jobs.get(jid)
+            key, mcfg, _meta = resolve_model(rec.model)
+            info = (
+                None
+                if (rec.dry_run or mcfg.head == "embedding")
+                else key,
+            )
+        except Exception:
+            info = (None,)
+        if len(self._attach_info) > 4096:  # bound a long-lived daemon
+            self._attach_info.clear()
+        self._attach_info[jid] = info
+        return info[0]
+
+    def _unattachable_higher_waiting(
+        self, my_priority: int, engine_key: str
+    ) -> bool:
+        """Preemption predicate for a CO-BATCHED generation session: a
+        strictly-higher-priority queued job forces a yield ONLY when it
+        cannot simply attach to the running session (different model,
+        embedding head, or dry run). Same-model generation jobs ride
+        free slots with priority-ordered admission instead."""
+        with self._lock:
+            items = [
+                (j, p)
+                for j, p in self._queued_prio.items()
+                if p < my_priority
+            ]
+        for jid, _p in items:
+            if jid in self._cancel:
+                continue  # will be discarded at pop, not run
+            if self._attach_key(jid) != engine_key:
+                return True
+        return False
+
+    def _pop_attachable(self, engine_key: str):
+        """Remove and return ``(job_id, seq)`` for the NEXT queued
+        generation job that can join the running co-batched session
+        (same engine model, not embedding, not a dry run), or None.
+
+        FIFO fairness: the scan walks the queue in (priority, seq)
+        order and STOPS at the first unattachable entry — a same-model
+        job submitted after a different-model job must not jump it.
+        Only the worker thread calls this, so there is no concurrent
+        ``get``; submitters' ``put`` calls serialize on the queue
+        mutex."""
+        import heapq
+
+        with self._queue.mutex:
+            cands = sorted(self._queue.queue)
+        for item in cands:
+            _prio, seq, jid = item
+            if jid is None:
+                # _WORKER_STOP sentinel (sorts first): the engine is
+                # closing — a live session stops adopting new jobs
+                break
+            if self._attach_key(jid) != engine_key:
+                if jid in self._cancel:
+                    continue  # discarded at pop — doesn't hold a turn
+                break  # FIFO: don't attach past an unattachable job
+            with self._queue.mutex:
+                try:
+                    self._queue.queue.remove(item)
+                except ValueError:
+                    continue  # taken since the snapshot
+                heapq.heapify(self._queue.queue)
+            with self._lock:
+                self._queued.discard(jid)
+                self._queued_prio.pop(jid, None)
+            self._attach_info.pop(jid, None)
+            if jid in self._cancel:
+                # mirrors the worker-pop cancel check
+                self.jobs.set_status(jid, JobStatus.CANCELLED)
+                continue
+            return jid, seq
+        return None
+
+    def _reserve_queue_entry(self, priority: int, job_id: str) -> int:
+        """Caller must hold ``self._lock``. Registers the job as queued
+        and returns its FIFO sequence number; the caller must follow up
+        with ``self._queue.put((priority, seq, job_id))`` or roll back."""
+        self._seq += 1
+        self._queued.add(job_id)
+        self._queued_prio[job_id] = priority
+        return self._seq
+
+    def _enqueue(self, priority: int, job_id: str) -> None:
+        with self._lock:
+            seq = self._reserve_queue_entry(priority, job_id)
+            self._queue.put((priority, seq, job_id))
+
+    def job_status(self, job_id: str) -> str:
+        return self.jobs.status(job_id).value
+
+    def get_job(self, job_id: str) -> Dict[str, Any]:
+        d = self.jobs.get(job_id).to_dict()
+        d["has_telemetry_dump"] = (
+            self.jobs._dir(job_id) / "telemetry.json"
+        ).exists()
+        return d
+
+    def list_jobs(self) -> List[Dict[str, Any]]:
+        return self.jobs.list_jobs()
+
+    def cancel_job(self, job_id: str) -> Dict[str, Any]:
+        status = self.jobs.status(job_id)
+        if status.is_terminal():
+            return {"status": status.value}
+        # monotonic one-way flag, polled by the worker at pop/row
+        # boundaries; it never un-sets while a job is live
+        self._cancel.add(job_id)
+        if status == JobStatus.QUEUED:
+            self.jobs.set_status(job_id, JobStatus.CANCELLED)
+            return {"status": JobStatus.CANCELLED.value}
+        return {"status": self.jobs.set_cancelling(job_id).value}
+
+    def job_results(
+        self,
+        job_id: str,
+        include_inputs: bool = False,
+        include_cumulative_logprobs: bool = False,
+    ) -> Dict[str, Any]:
+        """POST /job-results equivalent: {outputs[, errors, inputs,
+        cumulative_logprobs, gen_tokens]} aligned 1:1 with inputs,
+        order-preserving."""
+        cols = self.jobs.read_results(job_id)
+        ids = cols["row_id"]
+        if any(a > b for a, b in zip(ids, ids[1:])):
+            order = sorted(range(len(ids)), key=ids.__getitem__)
+            cols = {k: [v[i] for i in order] for k, v in cols.items()}
+        out: Dict[str, Any] = {"outputs": cols["outputs"]}
+        errors = cols.get("error")
+        if errors is not None and any(e is not None for e in errors):
+            # quarantined rows (row-level failure domain): 1:1 with
+            # outputs, None for clean rows
+            out["errors"] = [None if e is None else str(e) for e in errors]
+        if include_inputs:
+            out["inputs"] = self.jobs.read_inputs(job_id)
+        if include_cumulative_logprobs and "cumulative_logprobs" in cols:
+            out["cumulative_logprobs"] = cols["cumulative_logprobs"]
+            if "gen_tokens" in cols:  # sampled-token counts per row
+                out["gen_tokens"] = [int(x or 0) for x in cols["gen_tokens"]]
+        return out
+
+    def stream_job_progress(self, job_id: str) -> Iterator[Dict[str, Any]]:
+        """GET /stream-job-progress equivalent (NDJSON update dicts)."""
+        status = self.jobs.status(job_id)
+        jm = self.metrics.job(job_id)
+        if status.is_terminal():
+            rec = self.jobs.get(job_id)
+            yield {"update_type": "progress", "result": rec.num_rows
+                   if status == JobStatus.SUCCEEDED else jm.rows_completed}
+            return
+        yield from jm.subscribe()
+
+    def resume_job(self, job_id: str) -> Dict[str, Any]:
+        """Row-granular resume: re-queue a FAILED/CANCELLED job — or one
+        left RUNNING/STARTING by a dead engine process. Rows already
+        flushed to the partial store are not recomputed."""
+        status = self.jobs.status(job_id)
+        deadline = time.monotonic() + 5.0
+        while True:
+            # Atomic not-busy check AND re-queue under ONE lock hold:
+            # two concurrent resume calls must not both observe not-busy
+            # and double-enqueue the job.
+            with self._lock:
+                busy = (
+                    job_id in self._queued
+                    or job_id == self._current_job
+                    or job_id in self._attached
+                )
+                if not busy:
+                    # re-read status under the lock: a stale pre-lock
+                    # read could race job completion and re-run a
+                    # SUCCEEDED job
+                    status = self.jobs.status(job_id)
+                    if status == JobStatus.SUCCEEDED:
+                        return {
+                            "status": status.value,
+                            "resumed": False,
+                            "detail": "job already succeeded",
+                        }
+                    # fetch BEFORE registering as queued: a raise here
+                    # must not leave the id poisoning _queued
+                    rec = self.jobs.get(job_id)
+                    seq = self._reserve_queue_entry(
+                        rec.job_priority, job_id
+                    )
+                    break
+            # terminal status + still "current": the worker is in its
+            # epilogue — wait for it to let go rather than refusing a
+            # resume the caller can see is legitimate
+            if not status.is_terminal() or time.monotonic() > deadline:
+                return {"status": status.value, "resumed": False,
+                        "detail": "job is already queued or running"}
+            time.sleep(0.02)
+            status = self.jobs.status(job_id)
+        try:
+            self._cancel.discard(job_id)
+            self.metrics.drop(job_id)  # fresh stream for the re-run
+            self.jobs.set_status(
+                job_id, JobStatus.QUEUED, failure_reason=None
+            )
+            self._queue.put((rec.job_priority, seq, job_id))
+        except Exception:
+            with self._lock:
+                self._queued.discard(job_id)
+                self._queued_prio.pop(job_id, None)
+            raise
+        # mirror the session's resume filter: cancelled-truncated rows
+        # are regenerated, so they don't count as already done
+        done = sum(
+            1
+            for reason in self.jobs.read_partial_meta(job_id).values()
+            if reason != "cancelled"
+        )
+        return {
+            "status": JobStatus.QUEUED.value,
+            "resumed": True,
+            "rows_already_done": done,
+        }
+
+    def get_quotas(self) -> List[Dict[str, int]]:
+        return self.jobs.get_quotas()
+
+    def try_authentication(self) -> Dict[str, Any]:
+        return {"authenticated": True}  # local engine needs no key
+
+    def _dump_telemetry(self, job_id: str) -> None:
+        """Flight-recorder postmortem on job failure (best-effort)."""
+        if telemetry.enabled():
+            telemetry.TRACES.end_trace(f"tr-{job_id}", "error")
+        telemetry.dump_job(self.jobs._dir(job_id), job_id)
+
+    def get_trace(self, ident: str) -> Dict[str, Any]:
+        raise _not_ported("get_trace (trace export)", "Serving and fleet")
+
+    def diagnose_job(self, job_id: str) -> Dict[str, Any]:
+        raise _not_ported("diagnose_job (the bottleneck doctor)", "Serving and fleet")
+
+    def fleet_state(self) -> Dict[str, Any]:
+        raise _not_ported("fleet_state", "Serving and fleet")
+
+    def job_fleet(self, job_id: str) -> Dict[str, Any]:
+        raise _not_ported("job_fleet (data-parallel engines)", "Multi-GPU")
+
+    # ------------------------------------------------------------------
+    # Worker
+    # ------------------------------------------------------------------
+
+    def _weights_dir_for(self, engine_key: str) -> Optional[str]:
+        if self.ecfg.weights_dir:
+            cand = os.path.join(self.ecfg.weights_dir, engine_key)
+            if os.path.isdir(cand):
+                return cand
+        return None
+
+    def _get_tokenizer(
+        self, engine_key: str, mcfg: ModelConfig
+    ) -> BaseTokenizer:
+        """Tokenizer WITHOUT building the runner (quota gate / dry runs
+        must not pay model init). Called from the worker loop AND the
+        attach-build thread: cache lookups/publishes hold
+        ``self._lock``; the build itself runs unlocked."""
+        with self._lock:
+            cached = self._runner_cache.get(engine_key)
+            if cached is not None:
+                return cached[1]
+            tok = self._tok_cache.get(engine_key)
+        if tok is None:
+            tok = load_tokenizer(
+                self._weights_dir_for(engine_key),
+                vocab_size=mcfg.vocab_size,
+            )
+            with self._lock:
+                tok = self._tok_cache.setdefault(engine_key, tok)
+        return tok
+
+    def _get_runner(
+        self, engine_key: str, mcfg: ModelConfig
+    ) -> Tuple[ModelRunner, BaseTokenizer]:
+        with self._lock:
+            cached = self._runner_cache.get(engine_key)
+        if cached is not None:
+            return cached
+        # only the worker thread builds runners, so the unlocked build
+        # below cannot double-build
+        weights_dir = self._weights_dir_for(engine_key)
+        tok = self._get_tokenizer(engine_key, mcfg)
+        with self._lock:
+            # keep at most two runners resident (device memory budget);
+            # the evicted runner is dropped BEFORE the new one is built
+            if len(self._runner_cache) >= 2:
+                self._runner_cache.pop(next(iter(self._runner_cache)))
+        params = None
+        if weights_dir:
+            from .weights import load_checkpoint
+
+            params = load_checkpoint(
+                weights_dir, mcfg, self.ecfg, device=self.device
+            )
+        runner = ModelRunner(mcfg, self.ecfg, params=params, device=self.device)
+        with self._lock:
+            self._runner_cache[engine_key] = (runner, tok)
+        return runner, tok
+
+    def close(self, timeout: float = 10.0) -> bool:
+        """Stop the worker thread with a bounded join. The sentinel
+        sorts ahead of every real job, so an idle worker exits
+        immediately; a worker mid-job finishes that job first and the
+        join may time out — the thread is daemonic either way. Returns
+        True when the worker actually exited."""
+        self._queue.put(_WORKER_STOP)
+        self._worker.join(timeout=timeout)
+        return not self._worker.is_alive()
+
+    def _worker_loop(self) -> None:
+        while True:
+            _, _, job_id = self._queue.get()
+            if job_id is None:  # close() sentinel
+                return
+            with self._lock:
+                self._queued.discard(job_id)
+                self._queued_prio.pop(job_id, None)
+                self._current_job = job_id
+            if telemetry.enabled():
+                with self._lock:
+                    n_attached = len(self._attached)
+                telemetry.JOBS_RUNNING.set(1 + n_attached)
+            requeue_priority = None
+            try:
+                if job_id in self._cancel:
+                    self.jobs.set_status(job_id, JobStatus.CANCELLED)
+                    continue
+                requeue_priority = self._run_job(job_id)
+            except Exception as e:  # noqa: BLE001 — job isolation boundary
+                traceback.print_exc()
+                # terminal failure_log entry BEFORE the status flip, so
+                # a watcher that sees FAILED also sees why
+                self.jobs.append_failure_log(
+                    job_id,
+                    {"event": "job_failed",
+                     "error": f"{type(e).__name__}: {e}"},
+                )
+                self._dump_telemetry(job_id)
+                try:
+                    self.jobs.set_status(
+                        job_id,
+                        JobStatus.FAILED,
+                        failure_reason={"message": f"{type(e).__name__}: {e}"},
+                    )
+                except Exception:
+                    pass
+            finally:
+                if requeue_priority is None:
+                    # finish metrics BEFORE releasing _current_job:
+                    # resume_job waits on _current_job
+                    self.metrics.job(job_id).finish()
+                else:
+                    # preempted: keep the metrics stream alive and
+                    # requeue BEFORE releasing _current_job so a
+                    # concurrent resume_job can never double-enqueue
+                    self.jobs.set_status(job_id, JobStatus.QUEUED)
+                    self._enqueue(requeue_priority, job_id)
+                with self._lock:
+                    self._current_job = None
+                if telemetry.enabled():
+                    with self._lock:
+                        n_attached = len(self._attached)
+                    telemetry.JOBS_RUNNING.set(n_attached)
+
+    def _run_job(self, job_id: str) -> Optional[int]:
+        """Run one job to a terminal state. Returns None normally, or
+        the job's priority when it yielded to a higher-priority job (the
+        worker loop requeues it). Generation jobs run as a CO-BATCHED
+        session (``_run_cobatch_session``)."""
+        rec = self.jobs.get(job_id)
+        self.jobs.set_status(job_id, JobStatus.STARTING)
+        engine_key, mcfg, meta = resolve_model(rec.model)
+        if rec.stages:
+            raise _not_ported("stage-graph jobs", "Serving and fleet")
+        if mcfg.head == "embedding" and not rec.dry_run:
+            raise _not_ported("embedding jobs", "Embeddings")
+        if int(os.environ.get("SUTRO_DP_WORLD", "1") or 1) > 1:
+            raise _not_ported("data-parallel engines (SUTRO_DP_WORLD)", "Multi-GPU")
+
+        if rec.dry_run:
+            # dry runs tokenize only: no runner is built
+            tok = self._get_tokenizer(engine_key, mcfg)
+            inputs = self.jobs.read_inputs(job_id)
+            sampling = rec.sampling_params or {}
+            max_new = int(
+                sampling.get("max_new_tokens", self.ecfg.max_new_tokens)
+            )
+            input_tokens = int(
+                sum(
+                    len(ids)
+                    for ids in encode_chat_batch(
+                        tok,
+                        inputs,
+                        rec.system_prompt,
+                        mcfg.chat_template,
+                        threads=self.ecfg.tokenize_threads,
+                    )
+                )
+            )
+            est_out = rec.num_rows * max_new
+            self.jobs.update(
+                job_id,
+                cost_estimate=estimate_cost(engine_key, input_tokens, est_out),
+                input_tokens=input_tokens,
+            )
+            self.jobs.set_status(job_id, JobStatus.SUCCEEDED)
+            return None
+
+        runner, tok = self._get_runner(engine_key, mcfg)
+        if telemetry.enabled():
+            # the doctor's roofline denominator: device kind + model
+            # byte counts land in the job's flight-recorder attrs
+            telemetry.job(job_id).attrs["device"] = runner.device_info()
+
+        sess = _GenSession(self, job_id, rec, engine_key, mcfg, meta, tok)
+        self.jobs.set_status(job_id, JobStatus.RUNNING)
+        batcher = ContinuousBatcher(
+            runner,
+            stop_ids=getattr(tok, "stop_ids", lambda: [tok.eos_id])(),
+            seed=self.ecfg.seed,
+            token_bytes=sess.token_bytes,
+            prefix_store=None,
+            kv_tier=None,
+        )
+        return self._run_cobatch_session(job_id, engine_key, sess, batcher)
+
+    def _run_cobatch_session(
+        self, job_id: str, engine_key: str, sess: "_GenSession", batcher,
+    ) -> Optional[int]:
+        """Drive the primary job and any attachable queued same-model
+        jobs through ONE scheduler session (cross-job co-batching).
+        Returns the primary's requeue priority on preemption yield, else
+        None (each job's terminal state is set as it finishes)."""
+        sess.session_job = job_id
+        sessions: Dict[str, _GenSession] = {job_id: sess}
+        # in-flight attach build: session construction tokenizes every
+        # input row, so it runs on a BACKGROUND thread — the scheduler
+        # loop keeps decoding live jobs while an attach prepares. One
+        # build at a time also rate-limits cascading attaches.
+        build: Dict[str, Any] = {}
+
+        def _build_session(jid: str, seq: int) -> None:
+            try:
+                rec2 = self.jobs.get(jid)
+                self.jobs.set_status(jid, JobStatus.STARTING)
+                _key2, mcfg2, meta2 = resolve_model(rec2.model)
+                tok2 = self._get_tokenizer(_key2, mcfg2)
+                s2 = _GenSession(
+                    self, jid, rec2, _key2, mcfg2, meta2, tok2, seq=seq
+                )
+                s2.session_job = job_id
+                self.jobs.set_status(jid, JobStatus.RUNNING)
+                build["session"] = s2
+            except Exception as e:  # noqa: BLE001 — job isolation
+                traceback.print_exc()
+                self.jobs.append_failure_log(
+                    jid,
+                    {"event": "job_failed",
+                     "error": f"{type(e).__name__}: {e}"},
+                )
+                self._dump_telemetry(jid)
+                try:
+                    self.jobs.set_status(
+                        jid,
+                        JobStatus.FAILED,
+                        failure_reason={
+                            "message": f"{type(e).__name__}: {e}"
+                        },
+                    )
+                except Exception:
+                    pass
+                self.metrics.job(jid).finish()
+                with self._lock:
+                    self._attached.discard(jid)
+            finally:
+                build["done"] = True
+
+        def poll_new():
+            if build:
+                if not build.get("done"):
+                    return None  # build in flight; keep decoding
+                s2 = build.get("session")
+                build.clear()
+                if s2 is not None:
+                    sessions[s2.job_id] = s2
+                    return s2.ctx
+                return None
+            pop = self._pop_attachable(engine_key)
+            if pop is None:
+                return None
+            jid, seq = pop
+            with self._lock:
+                self._attached.add(jid)
+            t = threading.Thread(
+                target=_build_session, args=(jid, seq), daemon=True,
+                name=f"sutro-attach-{jid}",
+            )
+            build["thread"] = t
+            t.start()
+            return None
+
+        def _drain_pending_build() -> None:
+            """The session is ending with an attach build possibly in
+            flight: wait for it, then REQUEUE the job (it was pulled
+            from the queue but never ran a row — resume semantics make
+            the requeue exact)."""
+            if not build:
+                return
+            t = build.get("thread")
+            if t is not None:
+                t.join(timeout=600)
+            s2 = build.get("session")
+            build.clear()
+            if s2 is None:
+                return  # build failed: terminal status already set
+            self.jobs.set_status(s2.job_id, JobStatus.QUEUED)
+            self._enqueue(s2.rec.job_priority, s2.job_id)
+            with self._lock:
+                self._attached.discard(s2.job_id)
+
+        def on_job_done(ctx, outcome: str) -> None:
+            s = sessions[ctx.job_id]
+            if s.jtel is not None and (ctx.prefix_saved or ctx.prefix_paid):
+                # saved-vs-paid shared-prefix prefill attribution
+                s.jtel.attrs["prefix"] = {
+                    "saved_tokens": int(ctx.prefix_saved),
+                    "paid_tokens": int(ctx.prefix_paid),
+                }
+            # NO try/finally: a raised finalize must leave ``finalized``
+            # False so the session-error path below — or the worker
+            # loop for the primary — marks the job FAILED resumably
+            if outcome == "completed":
+                s.finalize_completed(batcher)
+            else:
+                s.finalize_cancelled()
+            s.finalized = True
+            if ctx.job_id != job_id:
+                # the worker loop's epilogue only covers the primary;
+                # attached jobs close out here
+                self.metrics.job(ctx.job_id).finish()
+                with self._lock:
+                    self._attached.discard(ctx.job_id)
+
+        def should_yield() -> bool:
+            live = [
+                s.ctx.priority for s in sessions.values() if not s.finalized
+            ]
+            if not live:
+                return False
+            return self._unattachable_higher_waiting(min(live), engine_key)
+
+        try:
+            state = batcher.run_multi(
+                [sess.ctx],
+                on_job_done=on_job_done,
+                poll_new=poll_new,
+                should_yield=should_yield,
+            )
+        except Exception:
+            _drain_pending_build()
+            # fail attached non-terminal jobs; the worker loop's except
+            # handles the primary — unless the primary already reached a
+            # terminal state, in which case swallow (don't flip it)
+            for jid2, s2 in list(sessions.items()):
+                if s2.finalized or jid2 == job_id:
+                    continue
+                try:
+                    s2.flush()
+                except Exception:
+                    logger.warning(
+                        "partial flush failed while failing attached "
+                        "job %s", jid2, exc_info=True,
+                    )
+                self.jobs.append_failure_log(
+                    jid2,
+                    {"event": "job_failed",
+                     "error": "co-batched session error"},
+                )
+                self._dump_telemetry(jid2)
+                try:
+                    self.jobs.set_status(
+                        jid2,
+                        JobStatus.FAILED,
+                        failure_reason={"message": "co-batched session error"},
+                    )
+                except Exception:
+                    pass
+                self.metrics.job(jid2).finish()
+                with self._lock:
+                    self._attached.discard(jid2)
+            if sessions[job_id].finalized:
+                traceback.print_exc()
+                return None
+            raise
+        _drain_pending_build()
+        if state == "yielded":
+            requeue = None
+            for jid2, s2 in list(sessions.items()):
+                if s2.finalized:
+                    continue
+                s2.flush()
+                if jid2 == job_id:
+                    requeue = s2.rec.job_priority  # worker requeues
+                else:
+                    # metrics stream stays alive across the preemption
+                    self.jobs.set_status(jid2, JobStatus.QUEUED)
+                    self._enqueue(s2.rec.job_priority, jid2)
+                    with self._lock:
+                        self._attached.discard(jid2)
+            return requeue
+        return None
+
+
+class _GenSession:
+    """Engine-side context for ONE generation job inside a (possibly
+    co-batched) batcher session: prompt build, resume filter, result
+    rendering/flushing, metrics, and terminal-state transitions. The
+    scheduler-side half is the ``JobCtx`` this owns."""
+
+    def __init__(
+        self, eng: "LocalEngine", job_id: str, rec, engine_key: str,
+        mcfg, meta, tok, seq: int = 0,
+    ):
+        self.eng = eng
+        self.job_id = job_id
+        self.rec = rec
+        self.engine_key = engine_key
+        self.tok = tok
+        self.jm = eng.metrics.job(job_id)
+        self.row_progress = BatchedProgress(
+            self.jm, every_rows=eng.ecfg.decode_batch_size
+        )
+        self.finalized = False
+        # the primary job of the session this one runs in (itself when
+        # it started the session; set by the engine), recorded in perf
+        self.session_job: Optional[str] = None
+        # host time in the jobstore (partial flushes, finalization):
+        # phases of the job's perf record
+        self.store_timer = StepTimer()
+        self.thinking = bool(meta.get("thinking"))
+        inputs = eng.jobs.read_inputs(job_id)
+        self.inputs = inputs
+        sampling = rec.sampling_params or {}
+        self.sampling = sampling
+        max_new = int(
+            sampling.get("max_new_tokens", eng.ecfg.max_new_tokens)
+        )
+        # stop sequences (vLLM-style sampling_params["stop"]): engine
+        # detects via a rolling byte tail; exact truncation happens at
+        # render time where the full decoded string exists
+        raw_stop = sampling.get("stop") or []
+        if isinstance(raw_stop, str):
+            raw_stop = [raw_stop]
+        if not all(isinstance(s, str) for s in raw_stop):
+            raise ValueError(
+                "sampling_params['stop'] must be a string or list of "
+                f"strings, got {raw_stop!r}"
+            )
+        stop_strs = [s for s in raw_stop if s]
+        if stop_strs and rec.output_schema:
+            # a stop string can cut the constrained output mid-JSON —
+            # the guaranteed-valid-JSON contract outranks it
+            warnings.warn(
+                "sampling_params['stop'] is ignored for output_schema "
+                "jobs: stopping mid-JSON would break the schema "
+                "guarantee (the schema's own closure ends generation)"
+            )
+            stop_strs = []
+        self.stop_strs = stop_strs
+        stop_seqs = [s.encode() for s in stop_strs] or None
+        # byte view of the vocab (probed once): the batcher needs it for
+        # stop-seq detection of ANY co-batched job
+        token_bytes = getattr(tok, "token_bytes", None)
+        if token_bytes is not None:
+            try:  # base-class stubs raise; probe once
+                token_bytes(0)
+            except Exception:
+                token_bytes = None
+        self.token_bytes = token_bytes
+        if stop_seqs and token_bytes is None:
+            warnings.warn(
+                "tokenizer lacks token_bytes; stop sequences only "
+                "truncate output, they cannot end generation early"
+            )
+
+        # Prompt build: system prompt + chat template, then ONE
+        # prefix-aware batched tokenize. Row-level failure domain: if
+        # the batched pass raises, fall back to per-row encodes and
+        # QUARANTINE only the failing rows.
+        self._tel_on = telemetry.enabled()
+        self.jtel = telemetry.job(job_id) if self._tel_on else None
+        self.pre_quarantined: Dict[int, str] = {}
+        t_tok = time.monotonic()
+        self.token_rows = [
+            np.array(ids, np.int32)
+            for ids in self._encode_rows(inputs, rec, mcfg)
+        ]
+        if self._tel_on:
+            telemetry.RECORDER.record(
+                "tokenize", job_id, t_tok,
+                time.monotonic() - t_tok, {"rows": len(inputs)},
+            )
+        self.input_tokens = int(sum(len(r) for r in self.token_rows))
+
+        constraint_factory = None
+        if rec.output_schema:
+            from .constrain import schema_constraint_factory
+
+            constraint_factory = schema_constraint_factory(
+                rec.output_schema, tok
+            )
+
+        # cancelled rows carry truncated output — regenerate on resume.
+        # Only row ids + finish reasons are held in memory; row CONTENT
+        # lives in the partial chunk store and is merged back at
+        # finalize (write_results_streamed).
+        self.done: Dict[int, str] = {
+            i: reason
+            for i, reason in eng.jobs.read_partial_meta(job_id).items()
+            if reason != "cancelled"
+        }
+        self.pending_flush: List[Dict[str, Any]] = []
+        # rows whose tokenize failed never reach the scheduler: they
+        # quarantine straight into the partial store as error rows
+        for i, msg in self.pre_quarantined.items():
+            if i in self.done:
+                continue
+            self.done[i] = "error"
+            self.pending_flush.append(
+                {"row_id": i, "outputs": None,
+                 "cumulative_logprobs": 0.0, "gen_tokens": 0,
+                 "finish_reason": "error", "error": msg}
+            )
+            self.on_row_event(
+                {"event": "row_quarantined", "row_id": i,
+                 "attempt": 0, "error": msg}
+            )
+            if self._tel_on:
+                self.jtel.add("rows_quarantined")
+                telemetry.ROWS_TOTAL.inc(1.0, "quarantined")
+
+        # one device per engine (meshes are not ported), so per-device
+        # rates are the job's rates
+        self.n_chips = 1
+        self.tput = Throughput(self.n_chips)
+        self.rows_rate = Throughput(1)
+        self.cancelled = {"flag": False}
+
+        requests = []
+        for i, ids in enumerate(self.token_rows):
+            if i in self.done:
+                continue
+            requests.append(
+                GenRequest(
+                    row_id=i,
+                    prompt_ids=ids,
+                    max_new_tokens=max_new,
+                    temperature=float(
+                        sampling.get("temperature", eng.ecfg.temperature)
+                    ),
+                    top_p=float(sampling.get("top_p", eng.ecfg.top_p)),
+                    top_k=int(sampling.get("top_k", eng.ecfg.top_k)),
+                    # lazy: the FSM instantiates at ADMISSION time, on
+                    # the batcher's prep thread while the device runs
+                    constraint_factory=constraint_factory,
+                    allow_truncate=rec.truncate_rows,
+                    row_seed=(i if rec.random_seed_per_input else None),
+                    stop_seqs=stop_seqs,
+                    presence_penalty=float(
+                        sampling.get("presence_penalty", 0.0)
+                    ),
+                    frequency_penalty=float(
+                        sampling.get("frequency_penalty", 0.0)
+                    ),
+                    repetition_penalty=float(
+                        sampling.get("repetition_penalty", 1.0)
+                    ),
+                )
+            )
+        self.requests = requests
+        self.ctx = JobCtx(
+            job_id=job_id,
+            pending=list(requests),
+            on_result=self.on_result,
+            on_progress=self.on_progress,
+            should_cancel=self.should_cancel,
+            priority=int(rec.job_priority or 0),
+            seq=seq,
+            row_retries=eng.ecfg.row_retries,
+            on_row_event=self.on_row_event,
+            trace_enq_mono=time.monotonic() if self._tel_on else 0.0,
+        )
+
+    def _encode_rows(self, inputs, rec, mcfg) -> List[List[int]]:
+        """Batched chat tokenize with per-row quarantine fallback.
+        Quarantined rows land in ``self.pre_quarantined`` and get an
+        empty token row (never admitted)."""
+        eng, tok = self.eng, self.tok
+        try:
+            if faults.ACTIVE is not None:
+                for i in range(len(inputs)):
+                    faults.inject("tokenizer.encode", row=i, job=self.job_id)
+            return encode_chat_batch(
+                tok,
+                inputs,
+                rec.system_prompt,
+                mcfg.chat_template,
+                threads=eng.ecfg.tokenize_threads,
+            )
+        except Exception:  # noqa: BLE001 — row isolation: retry per row
+            logger.warning(
+                "batched tokenize failed for %s; per-row fallback",
+                self.job_id, exc_info=True,
+            )
+        rows: List[List[int]] = []
+        for i, row in enumerate(inputs):
+            try:
+                if faults.ACTIVE is not None:
+                    faults.inject("tokenizer.encode", row=i, job=self.job_id)
+                rows.append(
+                    encode_chat_batch(
+                        tok, [row], rec.system_prompt, mcfg.chat_template
+                    )[0]
+                )
+            except Exception as e:  # noqa: BLE001 — quarantine the row
+                self.pre_quarantined[i] = f"{type(e).__name__}: {e}"
+                rows.append([])
+        return rows
+
+    # -- streaming callbacks (scheduler thread) ------------------------
+
+    def on_row_event(self, event: Dict[str, Any]) -> None:
+        """failure_log sink: every scheduler retry/quarantine decision
+        lands on the durable job record."""
+        self.eng.jobs.append_failure_log(self.job_id, dict(event))
+
+    def render_output(self, token_ids) -> str:
+        text = self.tok.decode(token_ids)
+        stop_cut = False
+        if self.stop_strs:
+            # truncate at the FIRST occurrence of any stop string (the
+            # stop string itself is excluded, vLLM semantics)
+            cut = min(
+                (
+                    p
+                    for p in (text.find(s) for s in self.stop_strs)
+                    if p >= 0
+                ),
+                default=-1,
+            )
+            if cut >= 0:
+                text = text[:cut]
+                stop_cut = True
+        if self.thinking:
+            # thinking models emit {content, reasoning_content} JSON so
+            # the SDK's unpack contract applies
+            reasoning, sep, content = text.partition("</think>")
+            if sep:
+                reasoning = reasoning.replace("<think>", "").strip()
+                content = content.strip()
+            elif stop_cut:
+                # the stop hit INSIDE the reasoning section: keep the
+                # chain of thought in reasoning_content
+                reasoning = text.replace("<think>", "").strip()
+                content = ""
+            else:
+                content, reasoning = text, ""
+            import json as _json
+
+            return _json.dumps(
+                {"content": content, "reasoning_content": reasoning}
+            )
+        return text
+
+    def on_result(self, res: GenResult) -> None:
+        # row-level failure domain: quarantined rows (finish_reason
+        # "error*") carry a null output + the error message; a decode
+        # failure in the RENDERER is itself quarantined per row
+        err = res.error
+        if err is None and res.finish_reason.startswith("error"):
+            err = res.finish_reason
+        if err is not None:
+            outputs = None
+        else:
+            try:
+                outputs = self.render_output(res.token_ids)
+            except Exception as e:  # noqa: BLE001 — row isolation
+                err = f"{type(e).__name__}: {e}"
+                outputs = None
+                self.on_row_event(
+                    {"event": "row_quarantined", "row_id": res.row_id,
+                     "attempt": 0, "error": err}
+                )
+        row = {
+            "row_id": res.row_id,
+            "outputs": outputs,
+            "cumulative_logprobs": res.cumulative_logprob,
+            # true sampled-token count: the denominator matching
+            # cumulative_logprobs
+            "gen_tokens": len(res.token_ids),
+            "finish_reason": res.finish_reason if err is None or
+            res.finish_reason.startswith("error") else "error",
+            "error": err,
+        }
+        if self._tel_on:
+            outcome = (
+                "quarantined" if err is not None
+                else "cancelled" if res.finish_reason == "cancelled"
+                else "ok"
+            )
+            self.jtel.add(f"rows_{outcome}")
+            telemetry.ROWS_TOTAL.inc(1.0, outcome)
+        self.done[res.row_id] = row["finish_reason"]
+        self.pending_flush.append(row)
+        if len(self.pending_flush) >= _PARTIAL_FLUSH_EVERY:
+            self.flush()
+        self.row_progress.update(len(self.done))
+
+    def on_progress(self, p: Dict[str, Any]) -> None:
+        self.row_progress.flush(len(self.done))
+        self.tput.note_total(p["input_tokens"] + p["output_tokens"])
+        if self._tel_on:
+            telemetry.TOKENS_PER_SECOND.set(
+                p["total_tokens_processed_per_second"]
+            )
+            telemetry.TOKENS_PER_SECOND_PER_CHIP.set(
+                p["total_tokens_processed_per_second"] / self.n_chips
+            )
+            self.rows_rate.note_total(len(self.done))
+            telemetry.ROWS_PER_SECOND.set(
+                self.rows_rate.per_second(), "generate"
+            )
+        self.jm.tokens(
+            {
+                "input_tokens": p["input_tokens"],
+                "output_tokens": p["output_tokens"],
+                "total_tokens_processed_per_second": p[
+                    "total_tokens_processed_per_second"
+                ],
+                "tokens_per_second_per_chip": p[
+                    "total_tokens_processed_per_second"
+                ]
+                / self.n_chips,
+            }
+        )
+
+    def should_cancel(self) -> bool:
+        if self.job_id in self.eng._cancel:
+            self.cancelled["flag"] = True
+            return True
+        return False
+
+    # -- terminal transitions (engine worker thread) -------------------
+
+    def flush(self) -> None:
+        if self.pending_flush:
+            with self.store_timer.time("jobstore_flush"):
+                self.eng.jobs.flush_partial(
+                    self.job_id, list(self.pending_flush)
+                )
+            self.pending_flush.clear()
+
+    def finalize_cancelled(self) -> None:
+        self.flush()
+        self.eng.jobs.set_status(self.job_id, JobStatus.CANCELLED)
+
+    def finalize_completed(self, batcher) -> None:
+        """Order, account, and persist final results (the 1:1
+        input-order contract) via the jobstore's merge-on-read streamed
+        writer. Output-token accounting rides the same pass
+        (``on_chunk``). ``batcher.timer`` is the SESSION's timer: under
+        co-batching the perf profile spans every job that shared the
+        batch."""
+        self.flush()
+        rec = self.rec
+        counted = {"output_tokens": 0}
+
+        def _count_chunk(cols) -> None:
+            if cols["row_id"] and cols["row_id"][0] == 0:
+                counted["output_tokens"] = 0  # a retried pass restarts
+            counted["output_tokens"] += int(
+                sum(
+                    len(self.tok.encode(o)) if o else 0
+                    for o in cols["outputs"]
+                )
+            )
+
+        with self.store_timer.time("jobstore_finalize"):
+            self.eng.jobs.write_results_streamed(
+                self.job_id, rec.num_rows, on_chunk=_count_chunk
+            )
+        output_tokens = counted["output_tokens"]
+        perf = dict(batcher.timer.summary())
+        perf.update(self.store_timer.summary())
+        perf["cobatch"] = {"session_job": self.session_job}
+        drafted = self.ctx.stats.get("spec_drafted", 0)
+        if drafted:
+            # n-gram speculative acceptance rate
+            accepted = self.ctx.stats.get("spec_accepted", 0)
+            perf["spec_ngram"] = {
+                "drafted": drafted,
+                "accepted": accepted,
+                "acceptance_rate": round(accepted / drafted, 3),
+            }
+        ff = self.ctx.stats.get("ff_forced", 0)
+        if ff:
+            # FSM fast-forward: scaffold tokens committed through
+            # parallel verify forwards instead of per-step windows
+            perf["fastforward"] = {"forced_tokens": ff}
+        if self._tel_on:
+            self.jtel.set("input_tokens", self.input_tokens)
+            self.jtel.set("output_tokens", output_tokens)
+            telemetry.TOKENS_TOTAL.inc(float(self.input_tokens), "in")
+            telemetry.TOKENS_TOTAL.inc(float(output_tokens), "out")
+            telemetry.TRACES.end_trace(f"tr-{self.job_id}", "ok")
+        self.eng.jobs.update(
+            self.job_id,
+            input_tokens=self.input_tokens,
+            output_tokens=output_tokens,
+            job_cost=estimate_cost(
+                self.engine_key, self.input_tokens, output_tokens
+            ),
+            perf=perf,
+        )
+        self.jm.progress(rec.num_rows)
+        # results are fully written (atomic rename) — flipping to
+        # SUCCEEDED last keeps the results-before-status invariant
+        self.eng.jobs.set_status(self.job_id, JobStatus.SUCCEEDED)
+
+
+# ---------------------------------------------------------------------------
+# Singleton
+# ---------------------------------------------------------------------------
+
+_engine: Optional[LocalEngine] = None
+_engine_lock = threading.Lock()
+
+
+def get_engine(ecfg: Optional[EngineConfig] = None, *, device="cuda") -> LocalEngine:
+    global _engine
+    with _engine_lock:
+        if _engine is None:
+            _engine = LocalEngine(ecfg, device=device)
+        return _engine
+
+
+def reset_engine() -> None:
+    """Test hook: drop the singleton. The outgoing worker gets a
+    bounded stop (idle workers exit immediately; a worker mid-job is
+    left to finish on its daemon thread rather than blocking the
+    reset)."""
+    global _engine
+    with _engine_lock:
+        old, _engine = _engine, None
+    if old is not None:
+        old.close(timeout=2.0)

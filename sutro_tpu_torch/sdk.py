@@ -1,0 +1,585 @@
+"""The ``Sutro`` client: DataFrame-in/DataFrame-out batch inference.
+
+The port of ``sutro_tpu/sdk.py`` for ``backend="tpu"`` (the default;
+the name is the SDK's, and the in-process ``LocalEngine`` of
+``engine/api.py`` runs on a CUDA card). ``"remote"`` and ``"fleet"``
+raise ``NotImplementedError`` until the HTTP transport is ported
+(ROADMAP.md).
+
+No third-party package is imported at module level: pandas only in the
+methods that build or read a DataFrame (``get_job_results`` and what
+calls it), tqdm only in the progress bar (``common.fancy_tqdm``). A
+list in, ``stay_attached=False`` and ``engine.job_results`` out is a
+path that needs neither. The results cache holds the same columns as
+the JAX package's parquet cache, as JSON
+(``$SUTRO_HOME/job-results/<job_id>.json``).
+
+Not ported yet (ROADMAP.md §1, "Datasets, URL inputs and the rest of
+the façade"): ``infer_per_model``, ``run_function``, ``run_graph``,
+``chat``, datasets, the telemetry getters and the embed/evals
+templates.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Union
+
+from .common import (
+    ModelOptions,
+    Spinner,
+    fancy_tqdm,
+    human_bytes,
+    make_clickable_link,
+    normalize_output_schema,
+    prepare_input_data,
+    to_colored_text,
+)
+from .interfaces import JobStatus
+from .templates.classification import ClassificationTemplates
+from .validation import check_for_api_key, check_version, config_dir
+
+MAX_NAME_LENGTH = 45
+MAX_DESCRIPTION_LENGTH = 512
+DEFAULT_BASE_URL = "https://api.sutro.sh"
+DEFAULT_SERVING_BASE_URL = "https://serve.sutro.sh"
+JOB_URL_TEMPLATE = "https://app.sutro.sh/jobs/{job_id}"
+
+
+def _check_backend(backend: str) -> str:
+    if backend in ("remote", "fleet"):
+        raise NotImplementedError(
+            f"backend={backend!r}: the HTTP transport is not ported yet "
+            "(ROADMAP.md §1, 'Datasets, URL inputs and the rest of the "
+            "façade'); use the default in-process backend"
+        )
+    if backend != "tpu":
+        raise ValueError("backend must be 'tpu', 'remote', or 'fleet'")
+    return backend
+
+
+class Sutro(ClassificationTemplates):
+    """Batch LLM inference client over the in-process CUDA engine."""
+
+    def __init__(
+        self,
+        api_key: Optional[str] = None,
+        base_url: str = DEFAULT_BASE_URL,
+        serving_base_url: str = DEFAULT_SERVING_BASE_URL,
+        backend: str = "tpu",
+        engine_config: Optional[Dict[str, Any]] = None,
+    ):
+        self.api_key = api_key or check_for_api_key()
+        self.base_url = base_url
+        self.serving_base_url = serving_base_url
+        self.backend = _check_backend(backend)
+        self._engine_config = engine_config or {}
+        self._engine = None
+        check_version()
+
+    # ------------------------------------------------------------------
+    # configuration mutators
+    # ------------------------------------------------------------------
+
+    def set_api_key(self, api_key: str) -> None:
+        self.api_key = api_key
+
+    def set_base_url(self, base_url: str) -> None:
+        self.base_url = base_url
+
+    def set_serving_base_url(self, serving_base_url: str) -> None:
+        self.serving_base_url = serving_base_url
+
+    def set_backend(self, backend: str) -> None:
+        self.backend = _check_backend(backend)
+
+    # ------------------------------------------------------------------
+    # transport
+    # ------------------------------------------------------------------
+
+    @property
+    def engine(self):
+        """The process's ``LocalEngine`` (``engine.api.get_engine``),
+        built on first use from ``load_engine_config`` and this
+        client's ``engine_config``; an engine built before (e.g.
+        ``get_engine(ecfg, device="cpu")``) is the one used."""
+        if self._engine is None:
+            from .engine.api import get_engine
+            from .engine.config import load_engine_config
+
+            self._engine = get_engine(
+                load_engine_config(**self._engine_config)
+            )
+        return self._engine
+
+    # ------------------------------------------------------------------
+    # core submit path
+    # ------------------------------------------------------------------
+
+    def _run_one_batch_inference(
+        self,
+        data: Any,
+        model: str,
+        column: Optional[Union[str, List[Any]]],
+        output_column: str,
+        job_priority: int,
+        output_schema: Optional[Dict[str, Any]],
+        system_prompt: Optional[str],
+        name: Optional[str],
+        description: Optional[str],
+        dry_run: bool,
+        stay_attached: bool,
+        truncate_rows: bool,
+        random_seed_per_input: bool,
+        sampling_params: Optional[Dict[str, Any]],
+        tenant: Optional[str] = None,
+    ) -> Any:
+        if name and len(name) > MAX_NAME_LENGTH:
+            raise ValueError(
+                f"name must be <= {MAX_NAME_LENGTH} characters"
+            )
+        if description and len(description) > MAX_DESCRIPTION_LENGTH:
+            raise ValueError(
+                f"description must be <= {MAX_DESCRIPTION_LENGTH} characters"
+            )
+        inputs = prepare_input_data(data, column=column)
+        payload = {
+            "model": model,
+            "inputs": inputs,
+            "column": column,
+            "job_priority": job_priority,
+            "output_schema": output_schema,
+            "system_prompt": system_prompt,
+            "name": name,
+            "description": description,
+            "dry_run": dry_run,
+            "truncate_rows": truncate_rows,
+            "random_seed_per_input": random_seed_per_input,
+            "sampling_params": sampling_params,
+            "tenant": tenant,
+        }
+        job_id = self.engine.submit_batch_inference(payload)
+
+        if dry_run:
+            with Spinner("Estimating cost...") as sp:
+                ok = self.await_job_completion(
+                    job_id, obtain_results=False, timeout=600
+                )
+                if ok is None:
+                    sp.fail()
+                    return None
+            est = self._get_job_cost_estimate(job_id)
+            print(
+                to_colored_text(
+                    f"Estimated cost for this job: ${est:.4f}"
+                    if est is not None
+                    else "No cost estimate available", "callout",
+                )
+            )
+            return est
+
+        status = self.get_job_status(job_id)
+        if status == JobStatus.FAILED.value:
+            reason = self._get_failure_reason(job_id)
+            print(to_colored_text(f"✗ Job failed: {reason}", "fail"))
+            return None
+
+        link = make_clickable_link(JOB_URL_TEMPLATE.format(job_id=job_id))
+        if not stay_attached:
+            print(to_colored_text(f"Job created: {job_id}", "success"))
+            print(to_colored_text(f"View progress at: {link}"))
+            return job_id
+
+        started = self._await_job_start(job_id)
+        if not started:
+            reason = self._get_failure_reason(job_id)
+            print(to_colored_text(f"✗ Job did not start: {reason}", "fail"))
+            return None
+        self._stream_progress_to_tqdm(job_id)
+
+        status = self.get_job_status(job_id)
+        if status != JobStatus.SUCCEEDED.value:
+            reason = self._get_failure_reason(job_id)
+            print(to_colored_text(f"✗ Job {status}: {reason}", "fail"))
+            return None
+
+        results_df = self.get_job_results(
+            job_id, output_column=output_column
+        )
+        if results_df is not None and len(results_df):
+            preview = results_df.head(5)
+            print(to_colored_text("Results preview:", "success"))
+            print(preview)
+        return job_id
+
+    def _stream_progress_to_tqdm(self, job_id: str) -> None:
+        """Consume progress updates into a styled bar."""
+        rec = self._fetch_job(job_id)
+        total = rec.get("num_rows", 0) or 0
+        pbar = fancy_tqdm(total=total, desc="Rows", color="blue")
+        token_state: Dict[str, Any] = {}
+        try:
+            for update in self._iter_progress(job_id):
+                if update.get("update_type") == "progress":
+                    done = int(update.get("result", 0))
+                    pbar.update(done - pbar.n)
+                elif update.get("update_type") == "tokens":
+                    # partial dicts merge monotonically
+                    token_state.update(update.get("result") or {})
+                    tps = token_state.get("total_tokens_processed_per_second")
+                    if tps is not None:
+                        pbar.set_postfix_str(f"{tps:,.0f} tok/s")
+        finally:
+            pbar.close()
+
+    def _iter_progress(self, job_id: str):
+        yield from self.engine.stream_job_progress(job_id)
+
+    # ------------------------------------------------------------------
+    # public inference API
+    # ------------------------------------------------------------------
+
+    def infer(
+        self,
+        data: Any,
+        model: ModelOptions = "gpt-oss-20b",
+        column: Optional[Union[str, List[Any]]] = None,
+        output_column: str = "inference_result",
+        job_priority: int = 0,
+        output_schema: Any = None,
+        system_prompt: Optional[str] = None,
+        name: Optional[str] = None,
+        description: Optional[str] = None,
+        dry_run: bool = False,
+        stay_attached: Optional[bool] = None,
+        truncate_rows: bool = True,
+        random_seed_per_input: bool = False,
+        sampling_params: Optional[Dict[str, Any]] = None,
+        tenant: Optional[str] = None,
+    ) -> Any:
+        """Submit a batch-inference job. Returns the job id (or the cost
+        estimate for ``dry_run=True``).
+
+        ``output_schema`` is a JSON-schema dict or a pydantic model
+        class; ``stay_attached`` defaults to ``job_priority == 0``.
+        ``tenant`` attributes the job's rows/tokens to a named tenant;
+        unset means tenant ``"default"``."""
+        if stay_attached is None:
+            stay_attached = job_priority == 0
+        schema = normalize_output_schema(output_schema)
+        if schema is not None and (sampling_params or {}).get("stop"):
+            import warnings
+
+            warnings.warn(
+                "sampling_params['stop'] is ignored for output_schema "
+                "jobs: stopping mid-JSON would break the schema "
+                "guarantee (the schema's own closure ends generation)",
+                stacklevel=2,
+            )
+        return self._run_one_batch_inference(
+            data=data,
+            model=model,
+            column=column,
+            output_column=output_column,
+            job_priority=job_priority,
+            output_schema=schema,
+            system_prompt=system_prompt,
+            name=name,
+            description=description,
+            dry_run=dry_run,
+            stay_attached=stay_attached,
+            truncate_rows=truncate_rows,
+            random_seed_per_input=random_seed_per_input,
+            sampling_params=sampling_params,
+            tenant=tenant,
+        )
+
+    def run_graph(self, *args: Any, **kwargs: Any) -> Any:
+        raise NotImplementedError(
+            "stage-graph jobs are not ported to the CUDA engine yet "
+            "(ROADMAP.md §1, 'Serving and fleet')"
+        )
+
+    # ------------------------------------------------------------------
+    # job lifecycle
+    # ------------------------------------------------------------------
+
+    def _fetch_job(self, job_id: str) -> Dict[str, Any]:
+        return self.engine.get_job(job_id)
+
+    def _get_job_cost_estimate(self, job_id: str) -> Optional[float]:
+        return self._fetch_job(job_id).get("cost_estimate")
+
+    def _get_failure_reason(self, job_id: str) -> str:
+        reason = self._fetch_job(job_id).get("failure_reason") or {}
+        return reason.get("message", "unknown")
+
+    def get_job_status(
+        self, job_id: str, with_failure_log: bool = False
+    ) -> Any:
+        """Job status string; with ``with_failure_log`` a dict
+        ``{"status", "failure_log", "has_telemetry_dump"}``."""
+        status = self.engine.job_status(job_id)
+        if with_failure_log:
+            rec = self._fetch_job(job_id)
+            return {
+                "status": status,
+                "failure_log": rec.get("failure_log") or [],
+                "has_telemetry_dump": bool(rec.get("has_telemetry_dump")),
+            }
+        return status
+
+    def get_job_failure_log(self, job_id: str) -> List[Dict[str, Any]]:
+        """Structured failure events for a job: per-row retries and
+        quarantines, transient-I/O retries, torn-chunk quarantines, and
+        terminal failures. Empty for clean jobs."""
+        return self._fetch_job(job_id).get("failure_log") or []
+
+    def list_jobs(self) -> List[Dict[str, Any]]:
+        return self.engine.list_jobs()
+
+    def cancel_job(self, job_id: str) -> Dict[str, Any]:
+        return self.engine.cancel_job(job_id)
+
+    def resume_job(self, job_id: str) -> Dict[str, Any]:
+        """Re-queue a FAILED/CANCELLED (or orphaned) job; rows already in
+        the partial store are not recomputed."""
+        return self.engine.resume_job(job_id)
+
+    def _await_job_start(self, job_id: str, timeout: int = 3600) -> bool:
+        """Poll until RUNNING/STARTING (True) or FAILED/CANCELLED (False)."""
+        poll = self._poll_s()
+        deadline = time.monotonic() + timeout
+        with Spinner("Waiting for job to start...") as sp:
+            while time.monotonic() < deadline:
+                status = self.get_job_status(job_id)
+                if status in (
+                    JobStatus.RUNNING.value,
+                    JobStatus.STARTING.value,
+                    JobStatus.SUCCEEDED.value,
+                ):
+                    sp.ok()
+                    return True
+                if status in (
+                    JobStatus.FAILED.value,
+                    JobStatus.CANCELLED.value,
+                    JobStatus.CANCELLING.value,
+                ):
+                    sp.fail()
+                    return False
+                time.sleep(poll)
+                poll = self._poll_next(poll)
+        sp.fail()
+        return False
+
+    def _poll_s(self) -> float:
+        """Status-poll interval: the local backend is a direct call, so
+        it polls fast."""
+        return 0.1
+
+    def _poll_next(self, poll: float) -> float:
+        return poll
+
+    def _wait_terminal(self, job_id: str, timeout: int) -> str:
+        poll = self._poll_s()
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            status = self.get_job_status(job_id)
+            if JobStatus(status).is_terminal():
+                return status
+            time.sleep(poll)
+            poll = self._poll_next(poll)
+        raise TimeoutError(f"Job {job_id} still running after {timeout}s")
+
+    def await_job_completion(
+        self,
+        job_id: str,
+        timeout: int = 7200,
+        obtain_results: bool = True,
+        output_column: str = "inference_result",
+        unpack_json: bool = True,
+        with_original_df: Optional[Any] = None,
+    ) -> Any:
+        """Block until terminal state; fetch results on success (the
+        job id when ``obtain_results=False``)."""
+        try:
+            status = self._wait_terminal(job_id, timeout)
+        except TimeoutError:
+            print(to_colored_text("✗ Timed out awaiting job", "fail"))
+            return None
+        if status != JobStatus.SUCCEEDED.value:
+            reason = self._get_failure_reason(job_id)
+            print(to_colored_text(f"✗ Job {status}: {reason}", "fail"))
+            return None
+        if not obtain_results:
+            return job_id
+        return self.get_job_results(
+            job_id,
+            output_column=output_column,
+            unpack_json=unpack_json,
+            with_original_df=with_original_df,
+        )
+
+    def attach(self, job_id: str) -> None:
+        """Re-attach a progress bar to a job."""
+        rec = self._fetch_job(job_id)
+        status = rec.get("status")
+        if status in (JobStatus.FAILED.value, JobStatus.CANCELLED.value):
+            print(to_colored_text(f"Cannot attach: job is {status}", "fail"))
+            return
+        if status == JobStatus.SUCCEEDED.value:
+            print(to_colored_text("Job already succeeded", "success"))
+            return
+        self._stream_progress_to_tqdm(job_id)
+
+    # ------------------------------------------------------------------
+    # results
+    # ------------------------------------------------------------------
+
+    def _cache_dir(self) -> Path:
+        d = config_dir() / "job-results"
+        d.mkdir(parents=True, exist_ok=True)
+        return d
+
+    def get_job_results(
+        self,
+        job_id: str,
+        include_inputs: bool = False,
+        include_cumulative_logprobs: bool = False,
+        output_column: str = "inference_result",
+        unpack_json: bool = True,
+        with_original_df: Optional[Any] = None,
+        disable_cache: bool = False,
+    ):
+        """The job's results as a pandas DataFrame (an ``outputs``
+        column renamed to ``output_column``, plus ``inputs`` /
+        ``cumulative_logprobs`` when asked), cached as JSON columns."""
+        import pandas as pd
+
+        cache_path = self._cache_dir() / f"{job_id}.json"
+        expected_cols = 1 + int(include_inputs) + int(
+            include_cumulative_logprobs
+        )
+        df = None
+        if not disable_cache and cache_path.exists():
+            cached = pd.DataFrame(json.loads(cache_path.read_text()))
+            # cache hit requires matching column count
+            if len(cached.columns) == expected_cols:
+                df = cached.rename(columns={"outputs": output_column})
+
+        if df is None:
+            results = self.engine.job_results(
+                job_id,
+                include_inputs=include_inputs,
+                include_cumulative_logprobs=include_cumulative_logprobs,
+            )
+            cols: Dict[str, Any] = {}
+            if include_inputs and "inputs" in results:
+                cols["inputs"] = results["inputs"]
+            cols["outputs"] = results["outputs"]
+            if (
+                include_cumulative_logprobs
+                and "cumulative_logprobs" in results
+            ):
+                cols["cumulative_logprobs"] = results["cumulative_logprobs"]
+            df = pd.DataFrame(cols)
+            if not disable_cache:
+                cache_path.parent.mkdir(parents=True, exist_ok=True)
+                tmp = cache_path.with_name(cache_path.name + ".tmp")
+                tmp.write_text(json.dumps(cols))
+                tmp.replace(cache_path)
+            df = df.rename(columns={"outputs": output_column})
+
+        if unpack_json:
+            df = self._unpack_json_outputs(df, output_column)
+
+        if with_original_df is not None:
+            import sys
+
+            pl = sys.modules.get("polars")
+            if pl is not None and isinstance(with_original_df, pl.DataFrame):
+                df = with_original_df.with_columns(
+                    **{c: pl.Series(df[c]) for c in df.columns}
+                )
+            elif isinstance(with_original_df, pd.DataFrame):
+                df = pd.concat(
+                    [
+                        with_original_df.reset_index(drop=True),
+                        df.reset_index(drop=True),
+                    ],
+                    axis=1,
+                )
+        return df
+
+    @staticmethod
+    def _unpack_json_outputs(df, output_column: str):
+        """If row 0 JSON-decodes to a dict, unpack top-level fields to
+        columns; thinking models' {content, reasoning_content} get content
+        additionally unpacked (failures no-op)."""
+        try:
+            if not len(df):
+                return df
+            first = df[output_column].iloc[0]
+            parsed = json.loads(first) if isinstance(first, str) else None
+            if not isinstance(parsed, dict):
+                return df
+            unpacked = [
+                json.loads(x) if isinstance(x, str) else {}
+                for x in df[output_column]
+            ]
+            keys = list(parsed.keys())
+            if set(keys) == {"content", "reasoning_content"}:
+                # thinking models: unpack content struct, drop it
+                content = [u.get("content") for u in unpacked]
+                df = df.assign(
+                    reasoning_content=[
+                        u.get("reasoning_content") for u in unpacked
+                    ]
+                )
+                try:
+                    inner = [
+                        json.loads(c) if isinstance(c, str) else c
+                        for c in content
+                    ]
+                    if inner and isinstance(inner[0], dict):
+                        for k in inner[0]:
+                            df[k] = [(d or {}).get(k) for d in inner]
+                    else:
+                        df["content"] = content
+                except Exception:
+                    df["content"] = content
+                return df
+            for k in keys:
+                df[k] = [u.get(k) for u in unpacked]
+            return df
+        except Exception:
+            return df
+
+    # ------------------------------------------------------------------
+    # auth / quotas / cache
+    # ------------------------------------------------------------------
+
+    def try_authentication(
+        self, api_key: Optional[str] = None
+    ) -> Dict[str, Any]:
+        return self.engine.try_authentication()
+
+    def get_quotas(self) -> List[Dict[str, int]]:
+        return self.engine.get_quotas()
+
+    def clear_job_results_cache(self) -> int:
+        """Remove $SUTRO_HOME/job-results; returns the files removed."""
+        d = self._cache_dir()
+        n = len(list(d.glob("*.json")))
+        shutil.rmtree(d, ignore_errors=True)
+        return n
+
+    def show_job_results_cache(self) -> List[Dict[str, Any]]:
+        d = self._cache_dir()
+        return [
+            {"file": f.name, "size": human_bytes(f.stat().st_size)}
+            for f in sorted(d.glob("*.json"))
+        ]

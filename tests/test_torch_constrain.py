@@ -18,8 +18,9 @@
   same ``constraint_room``), ``tiny-moe``, with ``prefix_split``, with
   int8 pages, and with ``spec_ngram_draft=4`` beside repetitive
   unconstrained greedy rows; sampled constrained rows are all valid.
-- ``chip_smoke.py``'s literal classify schema and system prompt equal
-  what the reference classify template builds.
+- ``chip_smoke.py``'s classify schema and system prompt (the port's
+  classify template builds them) equal what the reference classify
+  template builds.
 
 float32 parameters carried across with ``params_from_numpy``; the JAX
 side runs its plain path (``use_pallas=False``) and its Python mask
@@ -59,6 +60,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 sys.path.remove(str(ROOT))
+CLASSIFY_SYSTEM_PROMPT, CLASSIFY_SCHEMA = chip_smoke.classify_job()
 
 LOGP_TOL = 1e-5
 V = 512  # the tiny models' vocabulary: ids 267.. carry no bytes
@@ -106,7 +108,7 @@ SCHEMAS = {
                                      "maxProperties": 2}},
                         "required": ["v"]}},
         "$ref": "#/$defs/N"},
-    "classify": chip_smoke.CLASSIFY_SCHEMA,
+    "classify": CLASSIFY_SCHEMA,
     "extract": chip_smoke.EXTRACT_SCHEMA,
 }
 
@@ -180,7 +182,7 @@ def test_qwen3_vocabulary_masks():
     them: every other id (the specials but the stop id) is never
     allowed, and both mask cores agree at each state of a short walk."""
     vocab = MODEL_CONFIGS["qwen3-30b-a3b"].vocab_size
-    tf = t_fsm.schema_constraint_factory(chip_smoke.CLASSIFY_SCHEMA,
+    tf = t_fsm.schema_constraint_factory(CLASSIFY_SCHEMA,
                                          ByteTokenizer(vocab_size=vocab))
     fsm = tf()
     rng = np.random.default_rng(0)
@@ -207,8 +209,8 @@ def test_chip_smoke_classify_schema_is_the_templates():
 
     c = Capture()
     assert c.classify(["some text"], list(chip_smoke.CLASSIFY_LABELS)) is None
-    assert normalize_output_schema(c.seen["output_schema"]) == chip_smoke.CLASSIFY_SCHEMA
-    assert c.seen["system_prompt"] == chip_smoke.CLASSIFY_SYSTEM_PROMPT
+    assert normalize_output_schema(c.seen["output_schema"]) == CLASSIFY_SCHEMA
+    assert c.seen["system_prompt"] == CLASSIFY_SYSTEM_PROMPT
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +363,7 @@ def _serve(sched_mod, runner, reqs, stop_ids):
 
 
 def _factories(fsm_mod, tok):
-    return [fsm_mod.schema_constraint_factory(chip_smoke.CLASSIFY_SCHEMA, tok),
+    return [fsm_mod.schema_constraint_factory(CLASSIFY_SCHEMA, tok),
             fsm_mod.schema_constraint_factory(chip_smoke.EXTRACT_SCHEMA, tok)]
 
 
@@ -406,7 +408,7 @@ def test_greedy_constrained_rows_match_jax_engine(dense_params, case):
         assert got[i].cumulative_logprob == pytest.approx(
             want[i].cumulative_logprob, abs=1e-4, rel=1e-4)
         if i < 100:
-            schema = (chip_smoke.CLASSIFY_SCHEMA, chip_smoke.EXTRACT_SCHEMA)[i % 2]
+            schema = (CLASSIFY_SCHEMA, chip_smoke.EXTRACT_SCHEMA)[i % 2]
             assert chip_smoke.schema_errors(schema, ttok.decode(got[i].token_ids)) == [], i
     assert (tb.ff_forced, tb.spec_drafted, tb.spec_accepted) == (
         jb.ff_forced, jb.spec_drafted, jb.spec_accepted)
@@ -430,6 +432,6 @@ def test_sampled_constrained_rows_are_valid(dense_params):
     assert len(got) == len(reqs)
     for i, r in got.items():
         assert r.finish_reason == "schema_complete", (i, r.finish_reason)
-        schema = (chip_smoke.CLASSIFY_SCHEMA, chip_smoke.EXTRACT_SCHEMA)[i % 2]
+        schema = (CLASSIFY_SCHEMA, chip_smoke.EXTRACT_SCHEMA)[i % 2]
         assert chip_smoke.schema_errors(schema, tok.decode(r.token_ids)) == [], i
     json.loads(tok.decode(got[0].token_ids))

@@ -4,7 +4,11 @@
   fresh interpreter where importing ``jax`` or ``sutro_tpu`` fails;
 - an AST scan finds no import of either in any file of the port;
 - ``chip_smoke.main()`` exits non-zero and prints no result without a
-  CUDA device.
+  CUDA device;
+- the same holds with the packages the card's machine lacks (pandas,
+  pyarrow, pydantic, tqdm, colorama, requests, polars, safetensors)
+  blocked too, and a one-row job runs there through ``so.infer`` and
+  the engine's ``job_results``.
 """
 
 import ast
@@ -20,6 +24,10 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sutro_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "sutro_tpu")
+# not installed on the card's machine: the port reaches them only inside
+# the functions that need them
+ABSENT_ON_CARD = ("pandas", "pyarrow", "pydantic", "tqdm", "colorama", "requests",
+                  "polars", "safetensors")
 # the kernel modules and the modules around them, imported by name
 MODULES = (
     "sutro_tpu_torch.ops.cuda_build",
@@ -41,6 +49,15 @@ MODULES = (
     "sutro_tpu_torch.engine.constrain.schema",
     "sutro_tpu_torch.engine.constrain.fsm",
     "sutro_tpu_torch.engine.constrain.cpp",
+    "sutro_tpu_torch.interfaces",
+    "sutro_tpu_torch.validation",
+    "sutro_tpu_torch.common",
+    "sutro_tpu_torch.sdk",
+    "sutro_tpu_torch.templates.classification",
+    "sutro_tpu_torch.engine.stageframes",
+    "sutro_tpu_torch.engine.metrics",
+    "sutro_tpu_torch.engine.jobstore",
+    "sutro_tpu_torch.engine.api",
 )
 
 
@@ -48,10 +65,10 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def test_port_imports_with_jax_and_reference_blocked():
-    code = (
+def _import_all_code(blocked) -> str:
+    return (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'sutro_tpu'):\n"
+        f"for m in {tuple(blocked)!r}:\n"
         "    sys.modules[m] = None\n"
         "import sutro_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
@@ -62,13 +79,44 @@ def test_port_imports_with_jax_and_reference_blocked():
         "import chip_smoke\n"
         "print(len(names))\n"
     )
+
+
+def test_port_imports_with_jax_and_reference_blocked():
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run(
+        [sys.executable, "-c", _import_all_code(FORBIDDEN)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 24
+
+
+def test_port_imports_and_runs_a_job_without_the_card_machines_missing_packages(tmp_path):
+    code = _import_all_code(FORBIDDEN + ABSENT_ON_CARD) + (
+        "from sutro_tpu_torch.engine.api import get_engine\n"
+        "from sutro_tpu_torch.engine.config import EngineConfig\n"
+        "eng = get_engine(EngineConfig(kv_page_size=8, max_pages_per_seq=8,\n"
+        "    decode_batch_size=2, max_model_len=64, param_dtype='float32'), device='cpu')\n"
+        "import sutro_tpu_torch as so\n"
+        "jid = so.infer(['one row'], model='tiny-dense', stay_attached=False,\n"
+        "    sampling_params={'temperature': 0.0, 'max_new_tokens': 4})\n"
+        "assert so.await_job_completion(jid, obtain_results=False) == jid\n"
+        "assert so.Sutro().engine is eng\n"
+        "res = eng.job_results(jid, include_cumulative_logprobs=True)\n"
+        "assert len(res['outputs']) == 1 and res['gen_tokens'][0] >= 1, res\n"
+        "assert eng.close()\n"
+        "print('JOB_OK', eng.job_status(jid))\n"
+        "for m in " + repr(ABSENT_ON_CARD) + ":\n"
+        "    assert sys.modules[m] is None, m\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "SUTRO_HOME": str(tmp_path / "home")}
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 24
+    assert "JOB_OK SUCCEEDED" in out.stdout
+    assert (tmp_path / "home" / "jobs").is_dir()
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
