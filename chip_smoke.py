@@ -38,8 +38,10 @@ Phases, in order; any failure raises and exits non-zero:
    gathered and dequantized to bf16 beforehand (twice the bytes); the
    bf16 and int8 paged decode also at long context (64 rows with pasts
    of 4,096-8,192, 130 pages a row) at Qwen3-8B's and Qwen3-32B's head
-   counts, and flash prefill also at NH=64 (8 x 500) and at T=2,048
-   (4 rows, NH=32 over KVH=4), each beside its bound and SDPA;
+   counts, and flash prefill also at NH=64 (8 x 500), at T=2,048
+   (4 rows, NH=32 over KVH=4) and at serve 6's embedding batch (64 rows
+   x 512, NH=16 over KVH=8, also beside its plain version), each beside
+   its bound and SDPA;
 4. serve 1: ``ContinuousBatcher.run`` over a ``ModelRunner`` for
    ``qwen3-8b`` at full width and depth with random weights from a
    seed: 96 requests, greedy, top-p and row-seeded rows. Every row must
@@ -71,7 +73,26 @@ Phases, in order; any failure raises and exits non-zero:
    must give the same layer-0 attention output (atol = rtol of the
    kernel phase) and the same logits with and without the prefix group
    of the classify prompt's shared pages;
-6. serve 2, after serve 5's runner is freed: a templated batch job on
+6. serve 6, after serve 5's runner is freed: embedding jobs through
+   the façade on ``qwen-3-embedding-0.6b`` (28 layers, H=1024, 16/8
+   heads; random weights from the seed) at serve 1's geometry (batches
+   of 64 rows). Job E1: 4,096 rows of 16-1,024 tokens written as two
+   CSV files (``id``, ``text``), uploaded with ``so.create_dataset`` /
+   ``so.upload_to_dataset`` and submitted as ``so.infer("dataset-<id>",
+   column="text", job_priority=1)``; job E2: 256 rows as a list at
+   priority 0, submitted once E1 has passed 512 rows. Both must
+   succeed, results 1:1 with their inputs (E1's the CSVs' text column
+   in file order), every vector 1,024 floats of L2 norm within 1e-3 of
+   1; E1 must yield (E2's rows embedded between two of E1's batches,
+   E1 back to ``QUEUED`` and then ``RUNNING``) and embed no row twice;
+   flash prefill must launch exactly 28 times an ``embed_batch`` call
+   and every other kernel never; 8 of E1's rows of mixed length
+   embedded in a batch, under the plain attention and each alone must
+   agree to a cosine of 0.999; ``so.diagnose_job(E1)`` must grade
+   against the H100 row and ``so.get_trace(E1)`` give trace events. It
+   prints each job's rows/s and input tok/s, the jobstore's flush and
+   finalize ms and the bytes of JSON written;
+7. serve 2, after serve 6's runner is freed: a templated batch job on
    ``qwen3-30b-a3b`` (MoE, 128 experts) at full width and depth with
    ``prefix_split=True``: 96 requests sharing a 1,024-token template.
    Every row must finish, the grouped GEMM, the prefix carry, the
@@ -85,7 +106,7 @@ Phases, in order; any failure raises and exits non-zero:
    logits with and without the prefix groups, and a fused window with
    the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
-7. serve 4, on serve 2's runner after serve 2's job (the model is not
+8. serve 4, on serve 2's runner after serve 2's job (the model is not
    loaded again): a schema-constrained templated job of 96 rows, one
    shared 1,024-token template with the classify system prompt at its
    head and a 16-256-token suffix each, at most 128 new tokens: 64
@@ -101,7 +122,7 @@ Phases, in order; any failure raises and exits non-zero:
    forward's logits at each row's first position must match the
    decode forward's (two sets of 8 rows). It prints the mask core
    (native or Python) and the host time spent on masks;
-8. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+9. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
    16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
    past). Every row must finish, the int8 paged decode and flash
@@ -549,6 +570,12 @@ def kernel_kv_write(rng, torch, dev) -> dict:
                 bound_ms=bms, bound_by=by, library_ms=library_ms, cases=errs)
 
 
+# serve 6's embedding batch: 64 rows padded to 512 tokens, qwen3-emb-0.6b's
+# 16 query heads over 8 KV heads
+EB, ET, EMB_NH = 64, 512, 16
+EMBED_CASE = "T512_B64_nh16_kvh8_embed"
+
+
 def kernel_flash_prefill(rng, torch, dev) -> dict:
     import torch.nn.functional as F
     from sutro_tpu_torch.ops import flash_prefill as fp
@@ -589,14 +616,19 @@ def kernel_flash_prefill(rng, torch, dev) -> dict:
         errs[name] = check_close(f"flash_prefill[{name}]", got, want)
     plain_ms = time_ms(lambda: fp.flash_prefill_plain(*main), iters=5)
     m = timed(main)
-    # qwen3-32b's heads (NH=64 over 8) at the serve's 8 x 500, and serve
-    # 2's prefill_chunk of 2,048 tokens at qwen3-30b-a3b's heads (32 over 4)
-    more = {"T500_nh64": inputs(8, 500, nh=Q32_NH), "T2048_nh32_kvh4": inputs(4, 2048, kvh=QKVH)}
+    # qwen3-32b's heads (NH=64 over 8) at the serve's 8 x 500, serve 2's
+    # prefill_chunk of 2,048 tokens at qwen3-30b-a3b's heads (32 over 4),
+    # and serve 6's embedding batch: 64 rows x 512 at qwen3-emb-0.6b's
+    # heads (16 over 8), also beside its plain version
+    more = {"T500_nh64": inputs(8, 500, nh=Q32_NH), "T2048_nh32_kvh4": inputs(4, 2048, kvh=QKVH),
+            EMBED_CASE: inputs(EB, ET, nh=EMB_NH, kvh=KVH)}
     timed_cases = {}
     for name, args in more.items():
         errs[name] = check_close(f"flash_prefill[{name}]", fp.flash_prefill(*args),
                                  fp.flash_prefill_plain(*args))
         timed_cases[name] = timed(args)
+    timed_cases[EMBED_CASE]["plain_ms"] = time_ms(
+        lambda: fp.flash_prefill_plain(*more[EMBED_CASE]), iters=3, warmup=1)
     del more
     return _rec(fp.KERNEL, max_abs_err=max(errs.values()), ms=m["ms"],
                 plain_ms=plain_ms, bound_ms=m["bound_ms"], bound_by=m["bound_by"],
@@ -2128,6 +2160,244 @@ def serve_facade(torch, runners: list, kernels, absent, card: str, home: Path,
     return out
 
 
+EMBED_MODEL = "qwen3-emb-0.6b"          # catalog name qwen-3-embedding-0.6b
+EMBED_CHECK_ROWS = 8
+
+
+def write_embed_csvs(rng, tok, template: str, root: Path, n_files: int,
+                     rows_per_file: int) -> list:
+    """Serve 6's dataset: ``n_files`` CSV files of ``rows_per_file`` rows
+    (columns ``id`` and ``text``) of random text of at least 16 tokens,
+    each row's prompt (the chat template around it) at most 1,024
+    tokens. Returns the texts in file order."""
+    import csv
+
+    from sutro_tpu_torch.engine.tokenizer import encode_chat_batch
+
+    frame = len(encode_chat_batch(tok, [""], None, template)[0])
+    texts = []
+    root.mkdir(parents=True, exist_ok=True)
+    for f in range(n_files):
+        with open(root / f"part-{f}.csv", "w", newline="", encoding="utf-8") as fh:
+            w = csv.writer(fh, lineterminator="\n")
+            w.writerow(["id", "text"])
+            for n in rng.integers(16, 1024 - frame + 1, rows_per_file):
+                text = "".join(rng.choice(ALPHABET, int(n)))
+                w.writerow([len(texts), text])
+                texts.append(text)
+    return texts
+
+
+def _embed_rows_check(torch, runner, token_rows) -> dict:
+    """``EMBED_CHECK_ROWS`` rows of mixed length embedded three ways on
+    the engine's runner: one batch through the kernel, the same forward
+    with the plain attention, and each row alone through the kernel.
+    Each pair must agree to a cosine of at least 0.999."""
+    rows = [list(map(int, r)) for r in token_rows]
+    batch = runner.embed_batch(rows)
+    with plain_kernels():
+        plain = runner.embed_batch(rows)
+    alone = np.stack([runner.embed_batch([r])[0] for r in rows])
+    out = {}
+    for name, other in (("plain_attention", plain), ("alone", alone)):
+        cos = (batch * other).sum(1) / (np.linalg.norm(batch, axis=1)
+                                        * np.linalg.norm(other, axis=1))
+        out[name] = {"worst_cosine": float(cos.min()),
+                     "max_abs": float(np.abs(batch - other).max())}
+        if cos.min() < 0.999:
+            raise AssertionError(f"serve6: batch vs {name}: cosine {cos.min()} < 0.999")
+    out["lengths"] = [len(r) for r in rows]
+    return out
+
+
+def serve_embed(torch, kernels, absent, card: str, home: Path, seed: int = 0,
+                n_files: int = 2, rows_per_file: int = 2048, n_other: int = 256,
+                yield_after: int = 512) -> dict:
+    """Serve 6: embedding jobs through ``import sutro_tpu_torch as so`` on
+    ``qwen-3-embedding-0.6b`` (random weights from the seed) at serve 1's
+    geometry (``decode_batch_size`` 64, so batches of 64 rows). Job E1:
+    ``n_files`` CSV files of ``rows_per_file`` rows, uploaded as a dataset
+    and submitted as ``dataset-<id>`` at ``job_priority=1``. Job E2:
+    ``n_other`` rows as a list at ``job_priority=0``, submitted once E1 has
+    passed ``yield_after`` rows, so E1 yields at its next batch, requeues and resumes
+    from its flushed rows. Every ``embed_batch`` call's rows are
+    recorded to show it."""
+    import hashlib
+
+    import sutro_tpu_torch as so
+    from sutro_tpu_torch.engine import api, runner as runner_mod
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer, encode_chat_batch
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    mcfg = MODEL_CONFIGS[EMBED_MODEL]
+    fields = ENGINES[EMBED_MODEL][0]
+    pool = (1 + fields["decode_batch_size"] * fields["max_pages_per_seq"]) * fields[
+        "kv_page_size"] * mcfg.num_layers * 2 * mcfg.num_kv_heads * mcfg.head_dim * 2
+    weights = 2 * (mcfg.vocab_size * mcfg.hidden_size + mcfg.num_layers * (
+        mcfg.hidden_size * (mcfg.num_heads + 2 * mcfg.num_kv_heads) * mcfg.head_dim
+        + mcfg.num_heads * mcfg.head_dim * mcfg.hidden_size
+        + 3 * mcfg.hidden_size * mcfg.intermediate_size))
+    print(f"serve6: {EMBED_MODEL} runner: ~{weights / 1e9:.2f} GB of bf16 weights and a "
+          f"{pool / 1e9:.2f} GB pool; {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+          f"before it, {torch.cuda.mem_get_info()[0] / 1e9:.1f} GB free", flush=True)
+    (home / "engine.json").write_text(json.dumps({**fields, "seed": seed}))
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 6)
+    texts = write_embed_csvs(rng, tok, mcfg.chat_template, home / "embed-csv", n_files,
+                             rows_per_file)
+    others = ["".join(rng.choice(ALPHABET, int(n))) for n in rng.integers(16, 1001, n_other)]
+    key = lambda ids: hashlib.sha1(np.asarray(ids, np.int32).tobytes()).digest()  # noqa: E731
+    e1_tokens = encode_chat_batch(tok, texts, None, mcfg.chat_template)
+    e1_keys = {key(ids) for ids in e1_tokens}
+    if len(e1_keys) != len(texts):
+        raise AssertionError("serve6: E1's rows are not distinct")
+
+    calls = []   # per embed_batch call: its rows' keys
+    real_embed = runner_mod.ModelRunner.embed_batch
+
+    def recording_embed(self, rows):
+        calls.append([key(r) for r in rows])
+        return real_embed(self, rows)
+
+    model = "qwen-3-embedding-0.6b"
+    t_ds = time.monotonic()
+    ds = so.create_dataset()
+    names = so.upload_to_dataset(ds, [str(home / "embed-csv")], verbose=False)
+    upload_s = time.monotonic() - t_ds
+    engine = so.Sutro().engine
+    statuses = {}
+    real_set_status = engine.jobs.set_status
+
+    def set_status(job_id, status, **kw):
+        statuses.setdefault(job_id, []).append(status.value)
+        return real_set_status(job_id, status, **kw)
+
+    engine.jobs.set_status = set_status
+    runner_mod.ModelRunner.embed_batch = recording_embed
+    for k in (*kernels, *absent):
+        k.launches = 0
+    try:
+        t_submit = time.monotonic()
+        e1 = so.infer(ds, column="text", model=model, job_priority=1, stay_attached=False)
+        submit_s = time.monotonic() - t_submit
+        if e1 is None:
+            raise AssertionError("serve6: job E1 was refused")
+        while engine.job_status(e1) in ("QUEUED", "STARTING"):
+            time.sleep(0.005)
+        to_running = time.monotonic() - t_submit
+        jm = engine.metrics.job(e1)
+        while jm.rows_completed <= yield_after and engine.job_status(e1) == "RUNNING":
+            time.sleep(0.002)
+        e2_at = jm.rows_completed
+        t_e2 = time.monotonic()
+        e2 = so.infer(others, model=model, job_priority=0, stay_attached=False)
+        for name, jid in (("E2", e2), ("E1", e1)):
+            if so.await_job_completion(jid, timeout=900, obtain_results=False) != jid:
+                raise AssertionError(f"serve6: job {name} ended {engine.job_status(jid)}: "
+                                     f"{engine.get_job(jid)['failure_reason']}")
+        wall = time.monotonic() - t_submit
+        launches = {k.name: k.launches for k in (*kernels, *absent)}
+    finally:
+        runner_mod.ModelRunner.embed_batch = real_embed
+        engine.jobs.set_status = real_set_status
+
+    out = {"card": card, "dataset": {"id": ds, "files": names, "upload_s": upload_s},
+           "submit_s": submit_s, "submit_to_running_s": to_running, "wall_s": wall,
+           "e2_submitted_at_rows": e2_at, "embed_batch_calls": len(calls), "jobs": {}}
+    for name, jid, rows, t0 in (("E1", e1, texts, t_submit), ("E2", e2, others, t_e2)):
+        rec = engine.get_job(jid)
+        res = engine.job_results(jid, include_inputs=True)
+        if rec["status"] != "SUCCEEDED" or res["inputs"] != rows or len(
+                res["outputs"]) != len(rows) or "errors" in res:
+            raise AssertionError(f"serve6: job {name}'s results are not 1:1 with its inputs")
+        vecs = np.asarray(res["outputs"], np.float64)
+        norms = np.linalg.norm(vecs, axis=1)
+        if vecs.shape != (len(rows), mcfg.hidden_size) or not np.isfinite(vecs).all() or (
+                np.abs(norms - 1.0).max() > 1e-3):
+            raise AssertionError(f"serve6: job {name}'s vectors: shape {vecs.shape}, "
+                                 f"norms {norms.min()}..{norms.max()}")
+        perf = rec["perf"]
+        job_dir = engine.jobs._dir(jid)
+        json_bytes = sum(f.stat().st_size for f in job_dir.rglob("*.jsonl*")
+                         if f.name != "inputs.jsonl")
+        n_in = rec["input_tokens"]
+        out["jobs"][name] = {
+            "rows": len(rows), "input_tokens": n_in,
+            "wall_s": _record_s(rec, "datetime_created", "datetime_completed"),
+            "embed_s": perf["embed"]["total_s"], "embed_calls": perf["embed"]["count"],
+            "jobstore_flush_ms": 1e3 * perf.get("jobstore_flush", {}).get("total_s", 0.0),
+            "jobstore_flushes": perf.get("jobstore_flush", {}).get("count", 0),
+            "jobstore_finalize_ms": 1e3 * perf["jobstore_finalize"]["total_s"],
+            "json_bytes_written": json_bytes,
+            "norm_max_dev": float(np.abs(norms - 1.0).max()),
+            "statuses": statuses.get(jid, []),
+        }
+        j = out["jobs"][name]
+        j["rows_per_s"] = len(rows) / j["wall_s"]
+        j["input_tok_s"] = n_in / j["wall_s"]
+        j["embed_rows_per_s"] = len(rows) / j["embed_s"]
+        j["embed_input_tok_s"] = n_in / j["embed_s"]
+    # E1 yielded: E2's rows were embedded between two of E1's batches,
+    # E1 went back to QUEUED and ran again, and no row of E1 was
+    # embedded twice
+    e2_calls = [i for i, c in enumerate(calls) if not set(c) & e1_keys]
+    e1_calls = [i for i, c in enumerate(calls) if set(c) <= e1_keys]
+    if len(e1_calls) + len(e2_calls) != len(calls) or not e2_calls or not (
+            e1_calls[0] < e2_calls[0] and e2_calls[-1] < e1_calls[-1]):
+        raise AssertionError(f"serve6: E2's batches {e2_calls} did not run between E1's")
+    st1 = out["jobs"]["E1"]["statuses"]
+    if st1.count("RUNNING") < 2 or "QUEUED" not in st1[st1.index("RUNNING"):]:
+        raise AssertionError(f"serve6: E1 did not yield and resume: {st1}")
+    e1_rows = [k for i in e1_calls for k in calls[i]]
+    if len(e1_rows) != len(set(e1_rows)) or set(e1_rows) != e1_keys:
+        raise AssertionError(f"serve6: E1 embedded {len(e1_rows)} rows for {len(e1_keys)} "
+                             "distinct rows: a flushed row was embedded again, or one was lost")
+    out["e1_batches_before_yield"] = sum(1 for i in e1_calls if i < e2_calls[0])
+    out["launches"] = launches
+    for k in kernels:   # flash prefill: one launch a layer of each call
+        if launches[k.name] != mcfg.num_layers * len(calls):
+            raise AssertionError(f"serve6: {k.name} launched {launches[k.name]} times, not "
+                                 f"{mcfg.num_layers} x {len(calls)} embed_batch calls")
+    for k in absent:
+        if launches[k.name]:
+            raise AssertionError(f"serve6: kernel {k.name} launched {launches[k.name]} times")
+    # three ways of embedding 8 of E1's rows of mixed length
+    runner6 = engine._runner_cache[EMBED_MODEL][0]
+    order = np.argsort([len(r) for r in e1_tokens])
+    pick = [e1_tokens[i] for i in order[np.linspace(0, len(order) - 1,
+                                                    EMBED_CHECK_ROWS).astype(int)]]
+    out["rows_check"] = _embed_rows_check(torch, runner6, pick)
+    # the getters of the façade on E1
+    diag = so.diagnose_job(e1)
+    rl = diag["processes"]["rank0"].get("roofline") or {}
+    if "H100" not in str(rl.get("device_kind")) or "reason" in rl:
+        raise AssertionError(f"serve6: the doctor did not grade against the H100 row: {rl}")
+    trace = so.get_trace(e1)
+    n_events = sum(1 for ev in trace["traceEvents"] if ev.get("ph") == "X")
+    if not n_events:
+        raise AssertionError("serve6: get_trace gave no trace events")
+    out["doctor"] = {"verdict": diag["verdict"], "evidence": diag.get("evidence", [])[:4],
+                     "roofline": rl}
+    out["trace_events"] = n_events
+    print("serve6: " + json.dumps(out), flush=True)
+    print(f"serve6: card={card} submit_to_running_s={to_running:.2f} wall_s={wall:.2f} "
+          + " ".join(f"[{n}: rows={j['rows']} rows_per_s={j['rows_per_s']:.1f} "
+                     f"input_tok_s={j['input_tok_s']:.0f} embed_rows_per_s="
+                     f"{j['embed_rows_per_s']:.1f} flush_ms={j['jobstore_flush_ms']:.1f} "
+                     f"finalize_ms={j['jobstore_finalize_ms']:.1f} json_bytes="
+                     f"{j['json_bytes_written']}]" for n, j in out["jobs"].items())
+          + f" doctor={diag['verdict']} launches={json.dumps(launches)} "
+          f"worst_cosine={min(v['worst_cosine'] for k, v in out['rows_check'].items() if k != 'lengths'):.6f}",
+          flush=True)
+    engine.close(timeout=30)
+    engine._runner_cache.clear()
+    so._instance._engine = None
+    api.reset_engine()
+    del runner6
+    return out
+
+
 def free_card(torch, model: str) -> None:
     """The previous serve's runner must be gone before the next one."""
     import gc
@@ -2205,6 +2475,10 @@ def run(torch, args, home: Path) -> int:
     facade_path = [paged_decode.KERNEL, paged_decode.CARRY, prefix_carry.KERNEL,
                    kv_write.KERNEL, flash_prefill.KERNEL]
     facade_absent = [grouped_matmul.KERNEL, paged_decode.INT8]
+    # serve 6: embedding jobs run flash prefill alone
+    embed_path = [flash_prefill.KERNEL]
+    embed_absent = [paged_decode.KERNEL, paged_decode.CARRY, paged_decode.INT8,
+                    kv_write.KERNEL, prefix_carry.KERNEL, grouped_matmul.KERNEL]
     # no silent bf16 route under an int8 pool
     int8_absent = [paged_decode.KERNEL, paged_decode.CARRY, kv_write.KERNEL]
 
@@ -2254,8 +2528,11 @@ def run(torch, args, home: Path) -> int:
     del runner
     served["qwen3-8b façade"] = serve_facade(torch, runners, facade_path, facade_absent,
                                              card, home)
-    # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
     free_card(torch, "qwen3-8b")
+    # serve 6: embedding jobs through the façade, one from a dataset
+    served["qwen3-emb-0.6b"] = serve_embed(torch, embed_path, embed_absent, card, home)
+    # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
+    free_card(torch, EMBED_MODEL)
     s2, runner = serve_templated(torch, templated_path, dev)
     served["qwen3-30b-a3b"] = s2
     print(f"serve2: card={card} prefill_tok_s={s2['prefill_tok_s']:.1f} "

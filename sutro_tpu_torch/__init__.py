@@ -11,8 +11,11 @@ kernel on a CUDA tensor and runs the plain version on a CPU tensor.
 
 Module façade, as the JAX package's: a ``Sutro()`` singleton is made at
 import time and its public bound methods are hoisted to module scope,
-so ``import sutro_tpu_torch as so; so.infer(...)`` and
-``so.classify(...)`` submit jobs to the in-process ``LocalEngine``
+so ``import sutro_tpu_torch as so; so.infer(...)``,
+``so.classify(...)``, ``so.embed(...)``, ``so.score`` / ``so.rank``,
+the function calls and the dataset methods (``so.create_dataset``,
+``so.upload_to_dataset``, then ``so.infer("dataset-<id>", column=...)``)
+submit jobs to the in-process ``LocalEngine``
 (``engine/api.py``): jobstore, worker thread, co-batched
 ``ContinuousBatcher`` sessions over a ``ModelRunner`` on the card, with
 weights from ``EngineConfig.weights_dir`` (``engine/weights.py``

@@ -19,13 +19,22 @@ durable in the jobstore, so a new process can still see and resume
 finished or partial work. CUDA launches therefore come from the
 worker thread, not the caller's.
 
-Left out of this slice (each raises ``NotImplementedError`` naming its
-ROADMAP.md item, or is never constructed): data-parallel engines and
-the control plane, the interactive gateway and serving sessions, the
-live monitor, the KV tiers and the radix prefix store (the batcher
-gets ``prefix_store=None, kv_tier=None``), stage graphs, embedding
-jobs, ``dataset-`` and URL inputs, ``get_trace``, ``diagnose_job``,
-``fleet_state``, ``job_fleet`` and device traces (``profile_dir``).
+Inputs are a list of rows, a ``dataset-<id>`` of the engine's
+``DatasetStore`` (``engine/datasets.py``) or an http(s) CSV/parquet
+URL. Embedding models run length-sorted batches through
+``ModelRunner.embed_batch`` (``_run_embedding_job``), with the same
+flushes, resume, cancel and yield as generation jobs. The telemetry
+getters (``job_telemetry``, ``get_trace``, ``diagnose_job``) read the
+flight recorder through ``telemetry/traceexport.py`` and
+``telemetry/doctor.py``.
+
+Left out (each raises ``NotImplementedError`` naming its ROADMAP.md
+item, or is never constructed): data-parallel engines (the embedding
+job's data-parallel branch too) and the control plane, the interactive
+gateway and serving sessions, the live monitor, the KV tiers and the
+radix prefix store (the batcher gets ``prefix_store=None,
+kv_tier=None``), stage graphs, ``fleet_state``, ``job_fleet`` and
+device traces (``profile_dir``).
 """
 
 from __future__ import annotations
@@ -44,11 +53,12 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 from .. import telemetry
-from ..common import MODEL_CATALOG
+from ..common import MODEL_CATALOG, read_csv_text, read_parquet_columns
 from ..interfaces import JobStatus
 from ..models.configs import MODEL_CONFIGS, ModelConfig
 from . import faults
 from .config import EngineConfig, load_engine_config
+from .datasets import DatasetStore
 from .jobstore import JobStore, estimate_cost
 from .metrics import BatchedProgress, MetricsBus, Throughput
 from .profiling import StepTimer
@@ -62,6 +72,45 @@ _PARTIAL_FLUSH_EVERY = 256
 # are small non-negative ints), and its job_id None is never compared
 # because the (priority, seq) prefix is unique
 _WORKER_STOP = (-(1 << 60), -1, None)
+
+
+def _read_url_rows(url: str, column: "str | None") -> list:
+    """An http(s) CSV (``.csv``, ``.csv.gz``) or parquet URL -> its
+    column's rows as strings, as the JAX engine's ``pd.read_csv`` /
+    ``pd.read_parquet`` and ``astype(str)`` give them (CSV by
+    ``common.read_csv_text``; parquet needs pyarrow)."""
+    import io
+    from urllib.request import urlopen
+
+    path = url.split("?")[0]
+    try:
+        with urlopen(url, timeout=120) as resp:
+            body = resp.read()
+        if path.endswith((".csv", ".csv.gz")):
+            if path.endswith(".gz"):
+                import gzip
+
+                body = gzip.decompress(body)
+            columns, _ = read_csv_text(body.decode("utf-8"))
+        else:
+            columns = {
+                name: ["nan" if v is None else str(v) for v in vals]
+                for name, vals in read_parquet_columns(io.BytesIO(body)).items()
+            }
+    except Exception as e:
+        raise ValueError(f"Could not fetch input URL {url!r}: {e}") from e
+    if column is None:
+        if len(columns) != 1:
+            raise ValueError(
+                f"URL input has columns {list(columns)}; pass `column` "
+                "to select one"
+            )
+        column = next(iter(columns))
+    if column not in columns:
+        raise ValueError(
+            f"URL input has no column {column!r} (has {list(columns)})"
+        )
+    return columns[column]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -113,6 +162,7 @@ class LocalEngine:
             io_backoff_cap=self.ecfg.io_backoff_cap,
         )
         self.metrics = MetricsBus()
+        self.datasets = DatasetStore()
         self._queue: "queue.PriorityQueue" = queue.PriorityQueue()
         self._seq = 0
         self._cancel: set = set()
@@ -145,11 +195,19 @@ class LocalEngine:
         engine_key, mcfg, meta = resolve_model(model)
         inputs = payload["inputs"]
         if isinstance(inputs, str) and inputs.startswith("dataset-"):
-            raise _not_ported("dataset inputs", "Datasets, URL inputs and the rest of the façade")
-        if isinstance(inputs, str) and inputs.startswith(("http://", "https://")):
-            raise _not_ported("URL inputs", "Datasets, URL inputs and the rest of the façade")
+            inputs = self.datasets.read_rows(
+                inputs, column=payload.get("column")
+            )
+        elif isinstance(inputs, str) and inputs.startswith(
+            ("http://", "https://")
+        ):
+            # prepare_input_data passes URLs through for the engine
+            inputs = _read_url_rows(inputs, payload.get("column"))
         if not isinstance(inputs, list):
-            raise ValueError("inputs must be a list of strings")
+            raise ValueError(
+                "inputs must be a list of strings, a dataset-<id>, or an "
+                "http(s) URL to a parquet/csv file"
+            )
         if payload.get("stages") is not None:
             raise _not_ported("stage-graph jobs", "Serving and fleet")
         inputs = [str(x) for x in inputs]
@@ -510,11 +568,68 @@ class LocalEngine:
             telemetry.TRACES.end_trace(f"tr-{job_id}", "error")
         telemetry.dump_job(self.jobs._dir(job_id), job_id)
 
+    def job_telemetry(
+        self, job_id: str, write: bool = True
+    ) -> Dict[str, Any]:
+        """Per-job telemetry document: the flight recorder's span
+        timeline for this job plus its exact counters (rows by outcome,
+        tokens in/out). ``write`` persists it as
+        ``jobs/<job_id>/telemetry.json`` (the same artifact the engine
+        dumps when a job FAILs). Falls back to a previously persisted
+        dump when this process has no live state for the job (engine
+        restarted)."""
+        self.jobs.get(job_id)  # KeyError when unknown
+        doc = telemetry.job_doc(job_id)
+        if not doc["spans"] and not doc["counters"]:
+            persisted = telemetry.load_job_dump(self.jobs._dir(job_id))
+            if persisted is not None:
+                return persisted
+        if write and telemetry.enabled():
+            telemetry.dump_job(self.jobs._dir(job_id), job_id)
+        return doc
+
     def get_trace(self, ident: str) -> Dict[str, Any]:
-        raise _not_ported("get_trace (trace export)", "Serving and fleet")
+        """Chrome trace-event JSON (Perfetto-loadable) for ``ident``: a
+        forensics trace id (``tr-...``), a job id whose trace is still
+        in the ring, or a plain job id, which renders the job's whole
+        flight record instead. KeyError when unknown."""
+        from ..telemetry import doctor, traceexport
+
+        doc = telemetry.TRACES.doc(ident)
+        if doc is None and not ident.startswith("tr-"):
+            doc = telemetry.TRACES.doc(f"tr-{ident}")
+        if doc is not None:
+            chrome = traceexport.trace_to_chrome(doc)
+            chrome["otherData"]["verdict"] = doctor.diagnose_request(doc)
+            return chrome
+        # fall back to the whole-job flight record
+        jid = ident[3:] if ident.startswith("tr-") else ident
+        jdoc = telemetry.job_doc(jid)
+        if not jdoc["spans"] and not jdoc["counters"]:
+            persisted = None
+            try:
+                self.jobs.get(jid)
+                persisted = telemetry.load_job_dump(self.jobs._dir(jid))
+            except KeyError:
+                pass
+            if persisted is None:
+                raise KeyError(f"no trace or job telemetry for {ident!r}")
+            jdoc = persisted
+        return traceexport.job_doc_to_chrome(jdoc)
 
     def diagnose_job(self, job_id: str) -> Dict[str, Any]:
-        raise _not_ported("diagnose_job (the bottleneck doctor)", "Serving and fleet")
+        """Bottleneck doctor: the job's telemetry document analyzed into
+        stage attribution, roofline grades against the device kind the
+        runner reported (``engine/roofline.py``), and one named verdict
+        with evidence lines."""
+        from ..telemetry import doctor
+
+        rec = self.jobs.get(job_id)
+        return doctor.diagnose(
+            self.job_telemetry(job_id, write=False),
+            status=rec.status,
+            num_rows=rec.num_rows,
+        )
 
     def fleet_state(self) -> Dict[str, Any]:
         raise _not_ported("fleet_state", "Serving and fleet")
@@ -657,8 +772,6 @@ class LocalEngine:
         engine_key, mcfg, meta = resolve_model(rec.model)
         if rec.stages:
             raise _not_ported("stage-graph jobs", "Serving and fleet")
-        if mcfg.head == "embedding" and not rec.dry_run:
-            raise _not_ported("embedding jobs", "Embeddings")
         if int(os.environ.get("SUTRO_DP_WORLD", "1") or 1) > 1:
             raise _not_ported("data-parallel engines (SUTRO_DP_WORLD)", "Multi-GPU")
 
@@ -696,6 +809,22 @@ class LocalEngine:
             # the doctor's roofline denominator: device kind + model
             # byte counts land in the job's flight-recorder attrs
             telemetry.job(job_id).attrs["device"] = runner.device_info()
+
+        if mcfg.head == "embedding":
+            token_rows = [
+                np.array(ids, np.int32)
+                for ids in encode_chat_batch(
+                    tok,
+                    self.jobs.read_inputs(job_id),
+                    rec.system_prompt,
+                    mcfg.chat_template,
+                    threads=self.ecfg.tokenize_threads,
+                )
+            ]
+            self.jobs.set_status(job_id, JobStatus.RUNNING)
+            return self._run_embedding_job(
+                job_id, rec, runner, token_rows, self.metrics.job(job_id)
+            )
 
         sess = _GenSession(self, job_id, rec, engine_key, mcfg, meta, tok)
         self.jobs.set_status(job_id, JobStatus.RUNNING)
@@ -893,6 +1022,131 @@ class LocalEngine:
                     with self._lock:
                         self._attached.discard(jid2)
             return requeue
+        return None
+
+
+    def _run_embedding_job(
+        self, job_id, rec, runner, token_rows, jm
+    ) -> Optional[int]:
+        """Embedding path: the pooled head over length-sorted batches of
+        ``max(decode_batch_size, 8)`` rows (``ModelRunner.embed_batch``).
+
+        Row-granular durability like the generation path: vectors flush
+        to the partial store every ``_PARTIAL_FLUSH_EVERY`` rows, and a
+        resumed job embeds only the rows not flushed. The same mechanism
+        serves cancel and preemption: between batches the job stops on
+        its cancel flag, or yields (returning its priority) when a
+        strictly higher-priority job is queued. The record's ``perf``
+        holds the ``embed`` device calls and the jobstore's host time."""
+        bs = max(self.ecfg.decode_batch_size, 8)
+        results: Dict[int, Any] = {
+            i: r["outputs"] for i, r in self.jobs.read_partial(job_id).items()
+        }
+        pending_flush: List[Dict[str, Any]] = []
+        timer = StepTimer()
+
+        def flush() -> None:
+            if pending_flush:
+                with timer.time("jobstore_flush"):
+                    self.jobs.flush_partial(job_id, list(pending_flush))
+                pending_flush.clear()
+
+        todo = [i for i in range(len(token_rows)) if i not in results]
+        # length-sorted batches: rows in a batch pad to the batch max,
+        # so similar lengths cut padding (results are keyed by row id,
+        # so the output order is unaffected)
+        todo.sort(key=lambda i: len(token_rows[i]))
+        jm.progress(len(results))
+        row_progress = BatchedProgress(jm, every_rows=bs)
+        tel_on = telemetry.enabled()
+        jtel = telemetry.job(job_id) if tel_on else None
+        rows_rate = Throughput(1)
+
+        outcome = "completed"
+        done_n = in_toks = 0
+        t0 = time.monotonic()
+        for off in range(0, len(todo), bs):
+            if job_id in self._cancel:
+                outcome = "cancelled"
+                break
+            if self._higher_priority_waiting(rec.job_priority):
+                outcome = "yielded"
+                break
+            grp = todo[off : off + bs]
+            t0e = time.monotonic()
+            with timer.time("embed"):
+                emb = runner.embed_batch([token_rows[i].tolist() for i in grp])
+            if tel_on:
+                dte = time.monotonic() - t0e
+                telemetry.stage_observe("embed", dte)
+                telemetry.RECORDER.record(
+                    "embed", job_id, t0e, dte, {"rows": len(grp)}
+                )
+            for i, vec in zip(grp, emb.tolist()):
+                if tel_on:
+                    jtel.add("rows_ok")
+                    telemetry.ROWS_TOTAL.inc(1.0, "ok")
+                results[i] = vec
+                pending_flush.append(
+                    {"row_id": i, "outputs": vec,
+                     "cumulative_logprobs": 0.0, "finish_reason": "stop"}
+                )
+                if len(pending_flush) >= _PARTIAL_FLUSH_EVERY:
+                    flush()
+                row_progress.update(len(results))
+                done_n += 1
+                in_toks += len(token_rows[i])
+            # one device per engine, so per-chip rates are the job's
+            tps = in_toks / max(time.monotonic() - t0, 1e-9)
+            if tel_on:
+                rows_rate.note_total(done_n)
+                telemetry.ROWS_PER_SECOND.set(rows_rate.per_second(), "embed")
+                telemetry.TOKENS_PER_SECOND.set(tps)
+                telemetry.TOKENS_PER_SECOND_PER_CHIP.set(tps)
+            jm.tokens(
+                {
+                    "input_tokens": in_toks,
+                    "output_tokens": 0,
+                    "total_tokens_processed_per_second": tps,
+                    "tokens_per_second_per_chip": tps,
+                }
+            )
+        flush()
+        if outcome == "cancelled":
+            self.jobs.set_status(job_id, JobStatus.CANCELLED)
+            return None
+        if outcome == "yielded":
+            return rec.job_priority
+        row_progress.flush(len(results))  # terminal count always lands
+        input_tokens = int(sum(len(r) for r in token_rows))
+        if tel_on:
+            jtel.set("input_tokens", input_tokens)
+            jtel.set("output_tokens", 0)
+            telemetry.TOKENS_TOTAL.inc(float(input_tokens), "in")
+        self.jobs.update(
+            job_id,
+            input_tokens=input_tokens,
+            output_tokens=0,
+            job_cost=estimate_cost(rec.engine_key, input_tokens, 0),
+        )
+        n = len(token_rows)
+        t_fin = time.monotonic()
+
+        def record_perf() -> None:
+            # written before the status flips to SUCCEEDED
+            timer.add("jobstore_finalize", time.monotonic() - t_fin)
+            self.jobs.update(job_id, perf=timer.summary())
+
+        self.jobs.finalize_results(
+            job_id,
+            {
+                "row_id": list(range(n)),
+                "outputs": [results[i] for i in range(n)],
+                "cumulative_logprobs": [0.0] * n,
+                "finish_reason": ["stop"] * n,
+            },
+            on_written=record_perf,
+        )
         return None
 
 

@@ -588,11 +588,13 @@ class JobStore:
         tmp.replace(self._dir(job_id) / "results.jsonl")
 
     def finalize_results(
-        self, job_id: str, results: Dict[str, List[Any]]
+        self, job_id: str, results: Dict[str, List[Any]], on_written=None
     ) -> None:
         """Write final results THEN flip to SUCCEEDED (ordering
         invariant). Materializes the whole job; generation jobs use
-        ``write_results_streamed``."""
+        ``write_results_streamed``. ``on_written()``, when given, runs
+        between the write and the status flip (accounting that a
+        watcher of SUCCEEDED must see)."""
         t0 = time.monotonic()
         cols = list(results)
         n = len(results[cols[0]]) if cols else 0
@@ -605,6 +607,8 @@ class JobStore:
             telemetry.RECORDER.record(
                 "finalize", job_id, t0, dt, {"rows": n}
             )
+        if on_written is not None:
+            on_written()
         self.set_status(job_id, JobStatus.SUCCEEDED)
 
     # generation result schema: one definition so every bucket of a

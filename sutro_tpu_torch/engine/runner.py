@@ -668,8 +668,30 @@ class ModelRunner:
         wk, wv, past, table = handle
         write_kv(self.cache, wk, wv, table, past, self._up(accepted, torch.int32))
 
+    # ------------------------------------------------------------------
+    # embeddings
+    # ------------------------------------------------------------------
+
     def embed_batch(self, rows: list) -> np.ndarray:
-        raise NotImplementedError(
-            "embeddings (embed_batch) are a later slice of the CUDA port "
-            "(ROADMAP.md)"
+        """List of token-id rows -> ``[N, H]`` float32 embeddings on the
+        host. The rows pad to one ``[N, T]`` batch (``T`` a power-of-two
+        bucket of the longest row) and run one forward with no past, so
+        every layer's attention is flash prefill; the embedding head
+        pools each row over its valid tokens only (last or mean) and
+        L2-normalizes. No KV page is written."""
+        if faults.ACTIVE is not None:
+            faults.inject("runner.embed")
+        n = len(rows)
+        maxlen = max((len(r) for r in rows), default=1)
+        T = next_bucket(max(maxlen, 1), lo=16, hi=self.ecfg.max_context())
+        ids = np.zeros((n, T), np.int32)
+        lens = np.zeros((n,), np.int32)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+            lens[i] = len(r)
+        positions = torch.arange(T, device=self.device, dtype=torch.int32)[None, :]
+        emb, _, _ = transformer.forward(
+            self.mcfg, self.params, self._up(ids, torch.int32),
+            positions.expand(n, T), self._up(lens, torch.int32),
         )
+        return self._host(emb.float())

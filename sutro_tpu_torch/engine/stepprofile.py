@@ -1,8 +1,8 @@
 """Where a decode step's time goes on the card.
 
-    python -m sutro_tpu_torch.engine.stepprofile [--model qwen3-8b|qwen3-30b-a3b|qwen3-32b]
+    python -m sutro_tpu_torch.engine.stepprofile [--model qwen3-8b|qwen3-30b-a3b|qwen3-32b|qwen3-emb-0.6b]
 
-Builds one of the three engines of ``chip_smoke.py``'s serve phases
+Builds one of the four engines of ``chip_smoke.py``'s serve phases
 (:data:`ENGINES`, which the smoke test builds its engines from) with
 random weights from a seed and fills its pool, then times and profiles
 its phases:
@@ -18,7 +18,11 @@ its phases:
   over the template;
 - ``qwen3-32b``: int8 weights and int8 KV pages, otherwise as
   ``qwen3-8b`` (B=64 slots, 64-token pages, 32 pages per row, 64 rows
-  of 16-500 tokens, ``prefill`` 8 rows x 500 tokens).
+  of 16-500 tokens, ``prefill`` 8 rows x 500 tokens);
+- ``qwen3-emb-0.6b``: the embedding model of serve 6 at ``qwen3-8b``'s
+  geometry; its one phase, ``embed``, is one ``embed_batch`` of 64 rows
+  x 512 tokens (every layer's attention through flash prefill, then the
+  pooled head).
 
 The phases, in this order, each after a warm-up call:
 
@@ -124,7 +128,7 @@ def profile_phase(name: str, fn: Callable[[], None], repeats: int = 5) -> Dict:
     }
 
 
-# chip_smoke.py's three serve engines, by model: the EngineConfig fields
+# chip_smoke.py's serve engines, by model: the EngineConfig fields
 # and the length in tokens of the template every request shares
 ENGINES = {
     "qwen3-8b": (
@@ -144,6 +148,12 @@ ENGINES = {
         dict(kv_page_size=64, max_pages_per_seq=32, decode_batch_size=64,
              max_model_len=2048, prefill_chunk=512, decode_multi_step=8,
              quantize="int8", kv_quantize="int8"),
+        0,
+    ),
+    # the embedding model at serve 1's geometry: batches of 64 rows
+    "qwen3-emb-0.6b": (
+        dict(kv_page_size=64, max_pages_per_seq=32, decode_batch_size=64,
+             max_model_len=2048, decode_multi_step=8),
         0,
     ),
 }
@@ -229,6 +239,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     B, MP, PS = ecfg.decode_batch_size, ecfg.max_pages_per_seq, ecfg.kv_page_size
     rng = np.random.default_rng(0)
     tok = lambda n: rng.integers(3, mcfg.vocab_size, n).astype(np.int32)  # noqa: E731
+    if mcfg.head == "embedding":
+        rows = [tok(512) for _ in range(B)]
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "model": mcfg.name,
+                          "batch": B, "tokens_per_row": 512}), flush=True)
+        print(json.dumps(profile_phase("embed", lambda: runner.embed_batch(rows))),
+              flush=True)
+        return 0
     n_head = n_tpl // PS
     tables = np.zeros((B, MP), np.int32)
     tables[:, :n_head] = np.arange(1, 1 + n_head)

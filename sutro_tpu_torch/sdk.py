@@ -9,21 +9,22 @@ raise ``NotImplementedError`` until the HTTP transport is ported
 No third-party package is imported at module level: pandas only in the
 methods that build or read a DataFrame (``get_job_results`` and what
 calls it), tqdm only in the progress bar (``common.fancy_tqdm``). A
-list in, ``stay_attached=False`` and ``engine.job_results`` out is a
-path that needs neither. The results cache holds the same columns as
-the JAX package's parquet cache, as JSON
-(``$SUTRO_HOME/job-results/<job_id>.json``).
+list, a ``dataset-<id>`` or a URL in, ``stay_attached=False`` and
+``engine.job_results`` out is a path that needs neither. The results
+cache holds the same columns as the JAX package's parquet cache, as
+JSON (``$SUTRO_HOME/job-results/<job_id>.json``).
 
-Not ported yet (ROADMAP.md §1, "Datasets, URL inputs and the rest of
-the façade"): ``infer_per_model``, ``run_function``, ``run_graph``,
-``chat``, datasets, the telemetry getters and the embed/evals
-templates.
+Not ported yet (ROADMAP.md §1, "Serving and fleet"): ``chat``,
+``run_graph``, ``get_monitor`` and ``get_job_fleet`` (they raise), the
+fleet getters and the remote backend.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import shutil
+import sys
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
@@ -39,7 +40,16 @@ from .common import (
     to_colored_text,
 )
 from .interfaces import JobStatus
+from .observability import (
+    _complete_batch_traces,
+    _create_batch_traces,
+    _has_open_batch_traces,
+    _traced_run,
+    tracing_enabled,
+)
 from .templates.classification import ClassificationTemplates
+from .templates.embed import EmbeddingTemplates
+from .templates.evals import EvalTemplates
 from .validation import check_for_api_key, check_version, config_dir
 
 MAX_NAME_LENGTH = 45
@@ -61,7 +71,7 @@ def _check_backend(backend: str) -> str:
     return backend
 
 
-class Sutro(ClassificationTemplates):
+class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
     """Batch LLM inference client over the in-process CUDA engine."""
 
     def __init__(
@@ -303,6 +313,125 @@ class Sutro(ClassificationTemplates):
             "(ROADMAP.md §1, 'Serving and fleet')"
         )
 
+    def infer_per_model(
+        self,
+        data: Any,
+        models: List[str],
+        column: Optional[Union[str, List[Any]]] = None,
+        names: Optional[List[str]] = None,
+        descriptions: Optional[List[str]] = None,
+        **kwargs: Any,
+    ) -> List[Any]:
+        """Fan-out: same data to N models as N detached jobs
+        (names/descriptions must match length)."""
+        if names is not None and len(names) != len(models):
+            raise ValueError("names must be same length as models")
+        if descriptions is not None and len(descriptions) != len(models):
+            raise ValueError("descriptions must be same length as models")
+        job_ids = []
+        for i, model in enumerate(models):
+            job_ids.append(
+                self.infer(
+                    data,
+                    model=model,
+                    column=column,
+                    name=names[i] if names else None,
+                    description=descriptions[i] if descriptions else None,
+                    stay_attached=False,
+                    **kwargs,
+                )
+            )
+        return job_ids
+
+    # ------------------------------------------------------------------
+    # Functions
+    # ------------------------------------------------------------------
+
+    def run_function(
+        self,
+        name: str,
+        input_data: Any,
+        **kwargs: Any,
+    ) -> Dict[str, Any]:
+        """Single online call: a 1-row synchronous job against the model
+        the function name resolves to. ``input_data`` is a dict, a
+        string or a pydantic model (dumped to a dict)."""
+        if hasattr(input_data, "model_dump"):
+            input_data = input_data.model_dump()
+
+        def _call() -> Dict[str, Any]:
+            text = (
+                json.dumps(input_data)
+                if isinstance(input_data, dict)
+                else str(input_data)
+            )
+            job_id = self.engine.submit_batch_inference(
+                {"model": name, "inputs": [text], "job_priority": 0,
+                 "truncate_rows": False}
+            )
+            self._wait_terminal(job_id, timeout=600)
+            res = self.engine.job_results(
+                job_id, include_cumulative_logprobs=True
+            )
+            # the confidence is the geometric-mean token probability of
+            # the generation (cumulative logprob over the sampled-token
+            # count the engine recorded); ``predictions`` stays empty
+            logps = res.get("cumulative_logprobs") or [None]
+            gen_tokens = (res.get("gen_tokens") or [0])[0]
+            confidence = (
+                float(math.exp(logps[0] / max(gen_tokens, 1)))
+                if logps[0] is not None
+                else None
+            )
+            return {
+                "response": res["outputs"][0],
+                "confidence": confidence,
+                "predictions": [],
+                "run_id": job_id,
+            }
+
+        return _traced_run(name, _call, inputs={"input_data": input_data})
+
+    def batch_run_function(
+        self,
+        name: str,
+        data: Any,
+        column: Optional[Union[str, List[Any]]] = None,
+        job_priority: int = 0,
+        stay_attached: Optional[bool] = None,
+        **kwargs: Any,
+    ) -> Any:
+        """Functions over tables: rows become JSON dicts, delegated to
+        ``infer(model=name, truncate_rows=False)``. A pandas or polars
+        DataFrame is recognised through ``sys.modules``."""
+        if stay_attached and tracing_enabled():
+            raise ValueError(
+                "stay_attached=True is incompatible with LangSmith tracing"
+            )
+        pd, pl = sys.modules.get("pandas"), sys.modules.get("polars")
+        if pd is not None and isinstance(data, pd.DataFrame):
+            rows = [
+                json.dumps(r._asdict() if hasattr(r, "_asdict") else dict(r))
+                for r in data.to_dict(orient="records")
+            ]
+        elif pl is not None and isinstance(data, pl.DataFrame):
+            rows = [json.dumps(d) for d in data.to_dicts()]
+        else:
+            rows = [
+                json.dumps(x) if isinstance(x, dict) else str(x) for x in data
+            ]
+        job_id = self.infer(
+            rows,
+            model=name,
+            job_priority=job_priority,
+            stay_attached=stay_attached,
+            truncate_rows=False,
+            **kwargs,
+        )
+        if job_id and tracing_enabled():
+            _create_batch_traces(job_id, rows, model=name)
+        return job_id
+
     # ------------------------------------------------------------------
     # job lifecycle
     # ------------------------------------------------------------------
@@ -337,6 +466,44 @@ class Sutro(ClassificationTemplates):
         quarantines, transient-I/O retries, torn-chunk quarantines, and
         terminal failures. Empty for clean jobs."""
         return self._fetch_job(job_id).get("failure_log") or []
+
+    def get_job_telemetry(self, job_id: str) -> Dict[str, Any]:
+        """The job's flight-recorder document: span timeline across
+        engine stages (tokenize, prefill, decode windows, embed, flush,
+        finalize, ...) plus exact per-job counters (rows by outcome,
+        tokens in/out). Dumped automatically when a job FAILs; this
+        fetches and refreshes it on demand."""
+        return self.engine.job_telemetry(job_id)
+
+    def diagnose_job(self, job_id: str) -> Dict[str, Any]:
+        """Bottleneck doctor: per-process stage attribution over the
+        job's telemetry document, roofline grades for its device
+        windows, and one named bottleneck verdict with evidence
+        lines."""
+        return self.engine.diagnose_job(job_id)
+
+    def get_trace(self, ident: str) -> Dict[str, Any]:
+        """Chrome trace-event JSON (Perfetto-loadable) for a forensics
+        trace id (``tr-...``), a job id whose trace is still in the
+        ring, or a plain job id (whole flight record). Raises
+        ``KeyError`` when unknown."""
+        return self.engine.get_trace(ident)
+
+    def get_job_fleet(self, job_id: str) -> Dict[str, Any]:
+        return self.engine.job_fleet(job_id)
+
+    def get_monitor(self) -> Dict[str, Any]:
+        raise NotImplementedError(
+            "the live SLO monitor is not ported to the CUDA engine yet "
+            "(ROADMAP.md §1, 'Serving and fleet')"
+        )
+
+    def get_metrics_text(self) -> str:
+        """Engine metrics registry in Prometheus text exposition
+        format."""
+        from . import telemetry
+
+        return telemetry.REGISTRY.to_prometheus()
 
     def list_jobs(self) -> List[Dict[str, Any]]:
         return self.engine.list_jobs()
@@ -493,12 +660,20 @@ class Sutro(ClassificationTemplates):
                 tmp.replace(cache_path)
             df = df.rename(columns={"outputs": output_column})
 
+        # LangSmith batch-trace completion
+        if tracing_enabled() and _has_open_batch_traces(job_id):
+            rec = self._fetch_job(job_id)
+            _complete_batch_traces(
+                job_id,
+                df[output_column].tolist(),
+                rec.get("input_tokens", 0) or 0,
+                rec.get("output_tokens", 0) or 0,
+            )
+
         if unpack_json:
             df = self._unpack_json_outputs(df, output_column)
 
         if with_original_df is not None:
-            import sys
-
             pl = sys.modules.get("polars")
             if pl is not None and isinstance(with_original_df, pl.DataFrame):
                 df = with_original_df.with_columns(
@@ -557,6 +732,53 @@ class Sutro(ClassificationTemplates):
             return df
         except Exception:
             return df
+
+    # ------------------------------------------------------------------
+    # datasets
+    # ------------------------------------------------------------------
+
+    def create_dataset(self) -> str:
+        return self.engine.datasets.create()
+
+    def upload_to_dataset(
+        self,
+        dataset_id: str,
+        file_paths: Union[str, List[str]],
+        verbose: bool = True,
+    ) -> List[str]:
+        if isinstance(file_paths, str):
+            file_paths = [file_paths]
+        names = self.engine.datasets.upload(dataset_id, file_paths)
+        if verbose:
+            print(
+                to_colored_text(
+                    f"✔ Uploaded {len(names)} file(s) to {dataset_id}",
+                    "success",
+                )
+            )
+        return names
+
+    def list_datasets(self) -> List[Dict[str, Any]]:
+        return self.engine.datasets.list_datasets()
+
+    def list_dataset_files(self, dataset_id: str) -> List[str]:
+        return self.engine.datasets.list_files(dataset_id)
+
+    def download_from_dataset(
+        self,
+        dataset_id: str,
+        file_names: Optional[Union[str, List[str]]] = None,
+        output_path: Optional[str] = None,
+    ) -> List[str]:
+        if file_names is None:
+            file_names = self.list_dataset_files(dataset_id)
+        if isinstance(file_names, str):
+            file_names = [file_names]
+        out_dir = output_path or "."
+        return [
+            str(self.engine.datasets.download(dataset_id, fname, out_dir))
+            for fname in file_names
+        ]
 
     # ------------------------------------------------------------------
     # auth / quotas / cache

@@ -7,8 +7,9 @@
   CUDA device;
 - the same holds with the packages the card's machine lacks (pandas,
   pyarrow, pydantic, tqdm, colorama, requests, polars, safetensors)
-  blocked too, and a one-row job runs there through ``so.infer`` and
-  the engine's ``job_results``.
+  blocked too, and there a one-row job runs through ``so.infer`` and
+  the engine's ``job_results``, an embedding job gives its vectors,
+  and a job reads its rows from a CSV dataset.
 """
 
 import ast
@@ -58,6 +59,13 @@ MODULES = (
     "sutro_tpu_torch.engine.metrics",
     "sutro_tpu_torch.engine.jobstore",
     "sutro_tpu_torch.engine.api",
+    "sutro_tpu_torch.engine.datasets",
+    "sutro_tpu_torch.engine.roofline",
+    "sutro_tpu_torch.telemetry.traceexport",
+    "sutro_tpu_torch.telemetry.doctor",
+    "sutro_tpu_torch.observability",
+    "sutro_tpu_torch.templates.embed",
+    "sutro_tpu_torch.templates.evals",
 )
 
 
@@ -104,6 +112,20 @@ def test_port_imports_and_runs_a_job_without_the_card_machines_missing_packages(
         "assert so.Sutro().engine is eng\n"
         "res = eng.job_results(jid, include_cumulative_logprobs=True)\n"
         "assert len(res['outputs']) == 1 and res['gen_tokens'][0] >= 1, res\n"
+        "jid = so.infer(['an embedding row', 'and another'], model='tiny-emb',\n"
+        "    stay_attached=False)\n"
+        "assert so.await_job_completion(jid, obtain_results=False) == jid\n"
+        "vecs = eng.job_results(jid)['outputs']\n"
+        "assert len(vecs) == 2 and len(vecs[0]) == 128, vecs\n"
+        "import os\n"
+        "csv_path = os.path.join(os.environ['SUTRO_HOME'], 'rows.csv')\n"
+        "open(csv_path, 'w').write('id,text\\n1,first row\\n2,second row\\n')\n"
+        "ds = so.create_dataset()\n"
+        "so.upload_to_dataset(ds, csv_path, verbose=False)\n"
+        "jid = so.infer(ds, column='text', model='tiny-dense', stay_attached=False,\n"
+        "    sampling_params={'temperature': 0.0, 'max_new_tokens': 2})\n"
+        "assert so.await_job_completion(jid, obtain_results=False) == jid\n"
+        "assert eng.job_results(jid, include_inputs=True)['inputs'] == ['first row', 'second row']\n"
         "assert eng.close()\n"
         "print('JOB_OK', eng.job_status(jid))\n"
         "for m in " + repr(ABSENT_ON_CARD) + ":\n"

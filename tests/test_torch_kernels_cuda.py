@@ -13,6 +13,8 @@ to bf16 for the value product in the attention kernels.
 
 - flash prefill: T in {1, 15, 64, 65, 500, 2048} x Dh in {64, 128, 256}
   x G in {1, 4, 8}, each with no options and with a window and a sink;
+  an embedding batch at Qwen3-Embedding-0.6B's heads (16 over 8) with
+  zero-padded rows of ragged lengths, each row also alone;
 - paged decode (bf16 and int8 pages): pasts of 0, 1, every split
   boundary of the wrapper's plan +- 1 and 8,192, padding rows, a window
   that starts inside a split, window slots with win_len 0..W, the carry
@@ -88,6 +90,32 @@ def test_flash_prefill_matches_plain(dev, T, Dh, G):
         want = fp.flash_prefill_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         _close(got, want)
+
+
+@pytest.mark.parametrize("T", [32, 512])
+def test_flash_prefill_embedding_batch_with_padded_rows(dev, T):
+    """qwen3-emb-0.6b's heads (16 over 8, Dh=128) on an embedding batch:
+    rows of ragged valid lengths padded to one bucket, the padding's
+    q/k/v zeros. Every valid position matches the plain version and the
+    row's own call alone (padding never reaches a valid query)."""
+    B, NH, KVH, Dh = 8, 16, 8, 128
+    g = torch.Generator(device=dev).manual_seed(T)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    q = torch.randn((B, T, NH, Dh), **bf)
+    k = torch.randn((B, T, KVH, Dh), **bf)
+    v = torch.randn((B, T, KVH, Dh), **bf)
+    lens = [T, 1, T // 2, T - 1, 3, T // 4, 0, T // 2 + 1]
+    for b, n in enumerate(lens):
+        for x in (q, k, v):
+            x[b, n:] = 0
+    got = fp.flash_prefill(q, k, v)
+    want = fp.flash_prefill_plain(q, k, v)
+    torch.cuda.synchronize()
+    for b, n in enumerate(lens):
+        _close(got[b, :n], want[b, :n])
+        alone = fp.flash_prefill(q[b : b + 1, :n].contiguous(), k[b : b + 1, :n].contiguous(),
+                                 v[b : b + 1, :n].contiguous()) if n else got[b : b + 1, :0]
+        _close(got[b : b + 1, :n], alone)
 
 
 def test_flash_prefill_refuses(dev):

@@ -9,7 +9,8 @@ JAX template's (pydantic's ``model_json_schema()``) for list and dict
 classes; ``infer`` on a DataFrame with ``column`` (one name, or names
 and separators) and ``with_original_df``; the results cache round
 trip; the job-lifecycle methods; the helpers of ``common``; and the
-refusal of what is not ported.
+refusal of what is not ported (the remote backend, stage graphs, the
+serving options, the fleet getters and the live monitor).
 """
 
 import json
@@ -199,17 +200,13 @@ def test_what_is_not_ported_is_refused(clients):
             c.set_backend(backend)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         so.run_graph(TEXTS, stages=[])
-    for data in ("dataset-123", "https://example.com/x.parquet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            c.infer(data, model="tiny-dense", stay_attached=False)
     for ecfg in (EngineConfig(interactive_slots=1), EngineConfig(control="rows=2")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.LocalEngine(ecfg, device="cpu")
-    for name in ("get_trace", "diagnose_job", "job_fleet"):
+    for call in (lambda: c.engine.job_fleet("job-x"), lambda: c.get_job_fleet("job-x"),
+                 c.engine.fleet_state, c.get_monitor):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(c.engine, name)("job-x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.engine.fleet_state()
+            call()
 
 
 def test_smoke_classify_prompt_shares_whole_pages():
