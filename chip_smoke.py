@@ -22,9 +22,10 @@ Phases, in order; any failure raises and exits non-zero:
    time the card could take): paged decode, the page write and flash
    prefill at Qwen3-8B shapes (NH=32, KVH=8, Dh=128, PS=64, B=64); the
    prefix carry and the paged decode with the carry at Qwen3-30B-A3B
-   shapes (B=64, NH=32, KVH=4, 1,024-token shared prefix) and at serve
-   5's (NH=32 over KVH=8 behind the classify prompt's 5 shared pages;
-   held only), the carry's
+   shapes (B=64, NH=32, KVH=4, 1,024-token shared prefix), at serve
+   5's (NH=32 over KVH=8 behind the classify prompt's 5 shared pages)
+   and at serve 7's (the same heads behind S's 15 shared pages, pasts
+   to ~1,600 tokens; both held only), the carry's
    yardstick being the memory-efficient SDPA with its log-sum-exp, the
    carry also timed at a 4,096-token template, with its pages cold
    (rotated past the L2) and at forced split counts; the grouped GEMM at
@@ -73,7 +74,47 @@ Phases, in order; any failure raises and exits non-zero:
    must give the same layer-0 attention output (atol = rtol of the
    kernel phase) and the same logits with and without the prefix group
    of the classify prompt's shared pages;
-6. serve 6, after serve 5's runner is freed: embedding jobs through
+6. serve 7, after serve 5's engine is closed: online serving over HTTP
+   on the checkpoint serve 5 wrote. A new ``LocalEngine`` (serve 1's
+   geometry, ``prefix_split``, ``interactive_slots=8``, the radix prefix
+   store on, as by default, ``kv_tiers=True`` and an admission budget of
+   the pool's 64 x 2,048 tokens) behind ``server.start_server_thread`` on
+   127.0.0.1. Batch job B, 256 rows of 16-500 characters under one
+   ~1,024-token system prompt S (a prefix group of 15 pages), 64 new
+   tokens, greedy, priority 1, goes through ``Sutro(backend="remote")``
+   and its progress is read over the NDJSON stream. Once B passes 64
+   rows, 16 chat sessions start 0.25 s apart (3 turns each with a sticky
+   ``session_id``, S as their system prompt, 32-128-character user
+   turns, 64 tokens at temperature 0; 12 over SSE, 4 collected) beside 4
+   one-shot ``/v1/completions``; after turn 2 every session idles and
+   ``gateway.checkpoint_idle(0)`` demotes their pages to the host tier,
+   so that turn 3 promotes them. B must end ``SUCCEEDED`` with its rows
+   1:1 and the stream's end record; every request must end with
+   ``stop`` or ``length`` and its streamed deltas must equal its
+   terminal record's text; every chat turn must find S's pages warm in
+   the store (B's shell put them there), and the tier must demote and
+   promote, every promoted page within the int8 round trip of what was
+   demoted (pairs that ``ContinuousBatcher.tier_observer`` records); 4
+   requests replayed one at a time must give the same reply streamed
+   and collected, and the first of each route again with a stop string
+   from its reply must end ``stop`` just before it, streamed and
+   collected (the head's columns but for the printable ASCII bytes' and
+   the stop ids' are zeroed first, so that greedy replies are text a
+   client can time); a graceful shutdown with two streams in flight
+   must refuse a new request with a 503 and let the streams finish;
+   paged decode, its carry option, the prefix carry, the page write and
+   flash prefill must launch and the grouped GEMM and the int8 option
+   not; then, on the runner with its whole head, a warm request's
+   first-step logits must match its cold prefill's (the relative L2
+   bound of the prefill checks), and a decode step of two sets of 8 of
+   B's rows must give the same layer-0 attention and logits with and
+   without S's pages as prefix groups (one group, then two in one
+   step). It prints client and server TTFT and ITL percentiles, B's
+   decode tok/s before and during the burst, the rows suspended for
+   interactive requests, the store's hits and tokens saved and the
+   tier's operations, bytes and host time, and a ``serve7 summary``
+   line after the ``kernels`` line;
+7. serve 6, after serve 7's engine is closed: embedding jobs through
    the façade on ``qwen-3-embedding-0.6b`` (28 layers, H=1024, 16/8
    heads; random weights from the seed) at serve 1's geometry (batches
    of 64 rows). Job E1: 4,096 rows of 16-1,024 tokens written as two
@@ -92,7 +133,7 @@ Phases, in order; any failure raises and exits non-zero:
    against the H100 row and ``so.get_trace(E1)`` give trace events. It
    prints each job's rows/s and input tok/s, the jobstore's flush and
    finalize ms and the bytes of JSON written;
-7. serve 2, after serve 6's runner is freed: a templated batch job on
+8. serve 2, after serve 6's runner is freed: a templated batch job on
    ``qwen3-30b-a3b`` (MoE, 128 experts) at full width and depth with
    ``prefix_split=True``: 96 requests sharing a 1,024-token template.
    Every row must finish, the grouped GEMM, the prefix carry, the
@@ -106,7 +147,7 @@ Phases, in order; any failure raises and exits non-zero:
    logits with and without the prefix groups, and a fused window with
    the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
-8. serve 4, on serve 2's runner after serve 2's job (the model is not
+9. serve 4, on serve 2's runner after serve 2's job (the model is not
    loaded again): a schema-constrained templated job of 96 rows, one
    shared 1,024-token template with the classify system prompt at its
    head and a 16-256-token suffix each, at most 128 new tokens: 64
@@ -122,7 +163,7 @@ Phases, in order; any failure raises and exits non-zero:
    forward's logits at each row's first position must match the
    decode forward's (two sets of 8 rows). It prints the mask core
    (native or Python) and the host time spent on masks;
-9. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+10. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
    16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
    past). Every row must finish, the int8 paged decode and flash
@@ -204,6 +245,27 @@ def shared_head(prompts, ps: int) -> np.ndarray:
         neq = np.nonzero(first[:lcp] != np.asarray(p)[:lcp])[0]
         lcp = int(neq[0]) if len(neq) else lcp
     return first[: max(lcp, 0) // ps * ps]
+
+
+def online_system_prompt(rng, chars: int) -> str:
+    """Serve 7's system prompt S: ``chars`` characters of ``ALPHABET``."""
+    return "".join(rng.choice(ALPHABET, int(chars)))
+
+
+def online_prefix_pages(seed: int = 0, system_chars: int = 1000, model: str = "qwen3-8b",
+                        ps: int = 0) -> int:
+    """Pages of ``ps`` tokens (qwen3-8b's 64 by default) of the head that
+    serve 7's rows share (``model``'s chat frame around S, byte
+    tokenizer): the prefix its carry kernels read."""
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer, encode_chat_batch
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    ps = ps or PS
+    mcfg = MODEL_CONFIGS[model]
+    system = online_system_prompt(np.random.default_rng(seed + 7), system_chars)
+    rows = encode_chat_batch(ByteTokenizer(vocab_size=mcfg.vocab_size), ["x" * 16, "y" * 16],
+                             system, mcfg.chat_template)
+    return len(shared_head(rows, ps)) // ps
 
 
 def facade_prefix_pages() -> int:
@@ -644,18 +706,18 @@ N_PFX = 16
 GE, GH, GF, TOPK = 128, 2048, 768, 8
 
 
-def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP, n_pfx=N_PFX):
+def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP, n_pfx=N_PFX, suffix=(16, 257)):
     """Rows 0..63 of a templated batch: members' tables start with the
     ``n_pfx`` shared pages (16: the serve's 1,024-token template), every
     8th row is outside the group (a short untemplated row, so that, as
     in the serve, no row walks more than ~320 tokens of its own); each
     member has decoded into its own pages past the template and its
-    suffix. Qwen3-30B-A3B's heads and pages unless ``nh``/``kvh``/``mp``
-    say otherwise."""
+    suffix (``suffix``: the range of its length). Qwen3-30B-A3B's heads
+    and pages unless ``nh``/``kvh``/``mp`` say otherwise."""
     n_pool, kd = 1 + QB * mp, kvh * DH
     member = np.ones(QB, bool)
     member[7::8] = False
-    past = n_pfx * PS + rng.integers(16, 257, QB) + rng.integers(0, 57, QB)
+    past = n_pfx * PS + rng.integers(*suffix, QB) + rng.integers(0, 57, QB)
     past[~member] = rng.integers(16, 321, int((~member).sum()))
     table = np.zeros((QB, mp), np.int32)
     perm = rng.permutation(np.arange(1 + n_pfx, n_pool))
@@ -810,19 +872,23 @@ def check_carry(torch, pc, pd, x, dev, tag: str = "") -> tuple:
 
 def kernel_prefix_split(rng, torch, dev) -> list:
     """The prefix carry, and the paged decode started from it, against
-    their plain versions (``check_carry``) at serve 2's shape and at
-    serve 5's (qwen3-8b's NH=32 over KVH=8 behind the classify prompt's
-    shared pages); timed at serve 2's."""
+    their plain versions (``check_carry``) at serve 2's shape, at serve
+    5's (qwen3-8b's NH=32 over KVH=8 behind the classify prompt's shared
+    pages) and at serve 7's (the same heads behind the system prompt S's
+    shared pages, members' suffixes as long as job B's rows and their
+    64 new tokens); timed at serve 2's."""
     from sutro_tpu_torch.ops import paged_decode as pd
     from sutro_tpu_torch.ops import prefix_carry as pc
 
     x = _prefix_inputs(rng, torch, dev)
     carry_errs, dec_errs, (m0, l0, acc0) = check_carry(torch, pc, pd, x, dev)
-    y = _prefix_inputs(rng, torch, dev, nh=NH, kvh=KVH, mp=MP, n_pfx=facade_prefix_pages())
-    more = check_carry(torch, pc, pd, y, dev, "qwen3_8b_classify_")
-    carry_errs.update(more[0])
-    dec_errs.update(more[1])
-    del y, more
+    for tag, n_pfx, suffix in (("qwen3_8b_classify_", facade_prefix_pages(), (16, 257)),
+                               ("qwen3_8b_online_", online_prefix_pages(), (16, 565))):
+        y = _prefix_inputs(rng, torch, dev, nh=NH, kvh=KVH, mp=MP, n_pfx=n_pfx, suffix=suffix)
+        more = check_carry(torch, pc, pd, y, dev, tag)
+        carry_errs.update(more[0])
+        dec_errs.update(more[1])
+        del y, more
     base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
             x["k_cur"], x["v_cur"])
     win = dict(win_k=x["win_k"], win_v=x["win_v"], win_len=x["win_len"])
@@ -1322,19 +1388,23 @@ def serve(torch, kernels, dev, n_requests: int = 96, seed: int = 0):
     return out, runner
 
 
-def prefill_template_rows(runner, template, rows, room: int = 1) -> np.ndarray:
-    """The template in pages 1.., each of ``rows`` (template + suffix)
-    after it in its own pages, with ``room`` more tokens of space a row.
-    Returns the rows' page tables."""
+def prefill_template_rows(runner, template, rows, room: int = 1, n_groups: int = 1) -> np.ndarray:
+    """The template in pages 1.. (``n_groups`` copies, one after the
+    other), each of ``rows`` (template + suffix) after them in its own
+    pages, with ``room`` more tokens of space a row; row i reads copy
+    i % n_groups. Returns the rows' page tables."""
     ecfg = runner.ecfg
     PSz = ecfg.kv_page_size
     n_pfx = len(template) // PSz
-    head = np.zeros((ecfg.max_pages_per_seq,), np.int32)
-    head[:n_pfx] = np.arange(1, 1 + n_pfx)
-    runner.prefill(template, head)
-    tables, nxt = [], 1 + n_pfx
-    for p in rows:
-        t = head.copy()
+    heads = []
+    for g in range(n_groups):
+        head = np.zeros((ecfg.max_pages_per_seq,), np.int32)
+        head[:n_pfx] = np.arange(1 + g * n_pfx, 1 + (g + 1) * n_pfx)
+        runner.prefill(template, head)
+        heads.append(head)
+    tables, nxt = [], 1 + n_groups * n_pfx
+    for i, p in enumerate(rows):
+        t = heads[i % n_groups].copy()
         n = -(-(len(p) + room) // PSz) - n_pfx
         t[n_pfx : n_pfx + n] = np.arange(nxt, nxt + n)
         nxt += n
@@ -1345,25 +1415,29 @@ def prefill_template_rows(runner, template, rows, room: int = 1) -> np.ndarray:
     return tables
 
 
-def check_split_decode(torch, runner, template, rows, rng, label: str):
-    """The template in pages 1.., ``rows``' suffixes after it; then one
-    decode step over those pages with and without the prefix groups.
-    Held two ways: layer 0's attention output on the same pool (one
-    layer of rounding: the kernel phase's atol = rtol), and the logits
-    after the whole depth (rel-L2 under REL_L2). Returns (logits rel-L2,
-    layer-0 max |err|, tables)."""
+def check_split_decode(torch, runner, template, rows, rng, label: str, n_groups: int = 1):
+    """The template in pages 1.. (``n_groups`` copies: ``n_groups``
+    prefix groups live in one step, as a batch job's and the chats' can
+    be), ``rows``' suffixes after it; then one decode step over those
+    pages with and without the prefix groups. Held two ways: layer 0's
+    attention output on the same pool (one layer of rounding: the kernel
+    phase's atol = rtol), and the logits after the whole depth (rel-L2
+    under REL_L2). Returns (logits rel-L2, layer-0 max |err|, tables)."""
     from sutro_tpu_torch.models import transformer
     from sutro_tpu_torch.ops import attention
 
     dev, mcfg = runner.device, runner.mcfg
     n_rows = len(rows)
     n_pfx = len(template) // runner.ecfg.kv_page_size
-    tables = prefill_template_rows(runner, template, rows)
+    tables = prefill_template_rows(runner, template, rows, n_groups=n_groups)
     past = torch.as_tensor([len(p) for p in rows], dtype=torch.int32, device=dev)
     table_t = torch.as_tensor(tables, device=dev)
     ones = torch.ones((n_rows,), dtype=torch.int32, device=dev)
-    groups = ((torch.arange(1, 1 + n_pfx, dtype=torch.int32, device=dev),
-               torch.full((n_rows,), len(template), dtype=torch.int32, device=dev)),)
+    member = np.arange(n_rows)[None] % n_groups == np.arange(n_groups)[:, None]
+    groups = tuple(
+        (torch.arange(1 + g * n_pfx, 1 + (g + 1) * n_pfx, dtype=torch.int32, device=dev),
+         torch.as_tensor(np.where(member[g], len(template), 0), dtype=torch.int32, device=dev))
+        for g in range(n_groups))
 
     # layer 0's attention: random current-token q/k/v over the real pool
     NHq, KVHq, Dh = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
@@ -1942,9 +2016,8 @@ def serve_facade(torch, runners: list, kernels, absent, card: str, home: Path,
     Then, on the engine's runner, ``check_split_decode`` over job A's
     shared head and two sets of 8 of its rows. ``runners`` holds serve 1's runner, which is taken out and freed
     here once the checkpoint is written (the caller keeps no other
-    reference)."""
+    reference). The checkpoint stays for serve 7, which removes it."""
     import gc
-    import shutil
     import threading
 
     import sutro_tpu_torch as so
@@ -2046,7 +2119,6 @@ def serve_facade(torch, runners: list, kernels, absent, card: str, home: Path,
     finally:
         weights.load_checkpoint = real_load
         api._GenSession.on_result = real_on_result
-        shutil.rmtree(root, ignore_errors=True)   # loaded; not needed again
 
     out = {"card": card, "checkpoint": {**ckpt, "dir": str(root), "write_s": write_s,
                                         "load_s": load.get("s")},
@@ -2158,6 +2230,607 @@ def serve_facade(torch, runners: list, kernels, absent, card: str, home: Path,
     so._instance._engine = None
     api.reset_engine()
     return out
+
+
+# ---------------------------------------------------------------------
+# serve 7: online serving over HTTP beside a batch job
+# ---------------------------------------------------------------------
+
+
+def metrics_histogram(text: str, name: str) -> dict:
+    """Count, sum and the p50/p99 bucket bounds of a Prometheus
+    histogram in ``/metrics`` text (every series summed)."""
+    buckets, count, total = {}, 0.0, 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "_bucket{"):
+            le = line.split('le="')[1].split('"')[0]
+            val = float(line.split("}")[1].split()[0])
+            buckets[float(le)] = buckets.get(float(le), 0.0) + val
+        elif line.startswith(name + "_count"):
+            count += float(line.split()[1])
+        elif line.startswith(name + "_sum"):
+            total += float(line.split()[1])
+
+    def q(frac):
+        for le in sorted(buckets):
+            if count and buckets[le] >= frac * count:
+                return le
+        return None
+
+    return {"count": int(count), "sum_s": total, "p50_le_s": q(0.5), "p99_le_s": q(0.99)}
+
+
+def stage_seconds(text: str, stage: str) -> tuple:
+    """(seconds, samples) of one stage in ``/metrics`` text's
+    ``sutro_stage_seconds`` histogram (every scheduler's timer feeds it)."""
+    sel = '{stage="%s"}' % stage
+    got = {}
+    for line in text.splitlines():
+        for part in ("_sum", "_count"):
+            if line.startswith(f"sutro_stage_seconds{part}{sel}"):
+                got[part] = float(line.split()[-1])
+    return got.get("_sum", 0.0), int(got.get("_count", 0))
+
+
+def metric_total(text: str, name: str) -> float:
+    return sum(float(line.split()[-1]) for line in text.splitlines()
+               if line.startswith(name) and not line.startswith("#")
+               and line[len(name)] in "{ ")
+
+
+def quantiles(xs) -> dict:
+    xs = np.asarray(xs, np.float64)
+    if not len(xs):
+        return {"n": 0}
+    return {"n": int(len(xs)), "p50_s": float(np.percentile(xs, 50)),
+            "p99_s": float(np.percentile(xs, 99)), "max_s": float(xs.max())}
+
+
+def serve_online(torch, kernels, absent, card: str, ckpt_root: Path, *, model="qwen3-8b",
+                 device="cuda", geometry=None, n_rows=256, n_sessions=16, n_stream=12,
+                 n_oneshot=4, n_new=64, system_chars=1000, burst_after=64, seed=0) -> dict:
+    """Serve 7: the port's online-serving path on the checkpoint serve 5
+    wrote, over HTTP. A new ``LocalEngine`` (serve 1's geometry,
+    ``prefix_split``, ``interactive_slots=8``, the prefix store on, as by
+    default, ``kv_tiers=True``, and an admission budget of the pool's
+    tokens, ``decode_batch_size * max_model_len``) behind
+    ``start_server_thread`` on 127.0.0.1. Batch job B: ``n_rows`` rows of 16-500 characters under
+    one ~1,024-token system prompt S, ``n_new`` new tokens, greedy,
+    priority 1, through ``Sutro(backend="remote")``, its progress read
+    as NDJSON. Once B passes ``burst_after`` rows: ``n_sessions`` chat
+    sessions, 0.25
+    s apart, 3 turns each with a sticky ``session_id`` (S as the system
+    prompt, user turns of 32-128 characters, ``n_new`` tokens,
+    temperature 0; ``n_stream`` stream over SSE, the rest are collected),
+    and ``n_oneshot`` one-shot ``/v1/completions``. After turn 2 every
+    session idles and ``gateway.checkpoint_idle(0)`` demotes their pages
+    to the host tier, so turn 3 promotes them. Then 4 requests replayed
+    one at a time on the idle engine, streamed and collected; a
+    graceful shutdown with two streams in flight; and, on the engine's
+    runner, a warm request's first-step logits against its cold prefill
+    and ``check_split_decode`` over two sets of 8 of B's rows behind S's
+    shared pages (one prefix group, then two live in one step). The
+    runner's head has its columns zeroed before any job, but for the
+    printable ASCII bytes' and the stop ids', so that greedy picks
+    characters: the replies have text, and a client can time their
+    deltas (each replay runs again with a stop string taken from its
+    reply, and must end ``stop`` just before it, streamed and
+    collected); the logits checks run on the whole head, restored.
+    ``kernels`` must launch on the path, ``absent`` must not (both empty
+    on the CPU, where the plain versions run)."""
+    import threading
+    import traceback
+    import urllib.error
+    import urllib.request
+
+    from sutro_tpu_torch.engine import kvtier
+    from sutro_tpu_torch.engine.api import LocalEngine
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.kvcache import pages_needed
+    from sutro_tpu_torch.engine.scheduler import ContinuousBatcher
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer, encode_chat_batch
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+    from sutro_tpu_torch.sdk import Sutro
+    from sutro_tpu_torch.server import _graceful_shutdown, start_server_thread
+
+    mcfg = MODEL_CONFIGS[model]
+    geometry = geometry or ENGINES[model][0]
+    # the default budget (32,768) counts S in every row's worst-case
+    # total, though S's pages are shared, and held B's steps at ~12 of
+    # 64 rows: this one is what the pool holds
+    ecfg = EngineConfig(**geometry, prefix_split=True, weights_dir=str(ckpt_root), seed=seed,
+                        interactive_slots=8, kv_tiers=True,
+                        max_batch_tokens=geometry["decode_batch_size"] * geometry["max_model_len"])
+    PSz = ecfg.kv_page_size
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 7)
+    text = lambda r, n: "".join(r.choice(ALPHABET, int(n)))  # noqa: E731
+    system = online_system_prompt(rng, system_chars)
+    rows_b = [text(rng, n) for n in rng.integers(16, 501, n_rows)]
+    catalog = {"qwen3-8b": "qwen-3-8b"}.get(model, model)
+
+    # the tier's prefix-page moves: each demoted page's payload as the
+    # runner read it, and the pages each promotion uploaded into, while
+    # no later demotion has taken them again
+    demoted, live, moved = {}, {}, {"demote": 0, "promote": 0}
+
+    def observe(kind, keys, page_ids, payload):
+        moved[kind] += len(keys)
+        for j, (key, page) in enumerate(zip(keys, page_ids)):
+            if kind == "demote":
+                demoted[key] = {k: v[:, j : j + 1] for k, v in payload.items()}
+                live.pop(int(page), None)
+            else:
+                live[int(page)] = key
+
+    ContinuousBatcher.tier_observer = staticmethod(observe)
+    engine = LocalEngine(ecfg, device=device)
+    srv, srv_thread, url = start_server_thread(engine)
+    gw = engine.gateway
+    irs = {}   # request id -> InteractiveRequest (the terminal record's text)
+    real_submit = gw.submit
+
+    def submit(sreq, trace_id=None):
+        ir = real_submit(sreq, trace_id=trace_id)
+        irs[ir.id] = ir
+        return ir
+
+    gw.submit = submit
+    # random weights put almost every greedy token above the byte
+    # tokenizer's 256 byte ids, where a token has no text: a reply would
+    # be empty and a client could time no delta. Zeroing the head's
+    # columns but for the printable ASCII bytes' and the stop ids', before
+    # any job runs, makes greedy pick a character (one token each) or
+    # stop; the head comes back whole for the logits checks
+    runner = engine._get_runner(mcfg.name, mcfg)[0]
+    head = runner.params.get("lm_head")
+    if head is not None:
+        keep = torch.as_tensor([*range(32, 127), *tok.stop_ids()], device=head.device)
+        with torch.no_grad():
+            whole = head.clone()
+            head.zero_()
+            head[:, keep] = whole[:, keep]
+    c = Sutro(backend="remote", base_url=url, api_key="smoke")
+    errors, lock = [], threading.Lock()
+    # the card's busy share, as nvidia-smi samples it (the share of each
+    # 250 ms period in which a kernel ran), beside the phases' times
+    util, smi = [], None
+    if device != "cpu":
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+             "-lms", "250"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+        def sample():
+            for line in smi.stdout:
+                if line.strip().isdigit():
+                    util.append((time.monotonic(), int(line)))
+
+        threading.Thread(target=sample, daemon=True).start()
+    metrics_start = c.get_metrics_text()
+    for k in (*kernels, *absent):
+        k.launches = 0
+    t_start = time.monotonic()
+    try:
+        # -- batch job B, followed over its NDJSON stream ------------------
+        jid = c.infer(rows_b, model=catalog, system_prompt=system, job_priority=1,
+                      stay_attached=False,
+                      sampling_params={"temperature": 0.0, "max_new_tokens": n_new})
+        if jid is None:
+            raise AssertionError("serve7: job B was refused")
+        progress, tokens_seen, end = [], [], []
+
+        def follow():
+            resp = c.do_request("get", f"stream-job-progress/{jid}", stream=True)
+            resp.raise_for_status()
+            for line in resp.iter_lines():
+                if not line:
+                    continue
+                u = json.loads(line)
+                now = time.monotonic()
+                if u.get("t") == "end":
+                    end.append(u)
+                elif u["update_type"] == "progress":
+                    progress.append((now, int(u["result"])))
+                elif u["update_type"] == "tokens" and "output_tokens" in u["result"]:
+                    tokens_seen.append((now, int(u["result"]["output_tokens"])))
+
+        follower = threading.Thread(target=follow, daemon=True)
+        follower.start()
+        while not progress or progress[-1][1] <= burst_after:
+            if not follower.is_alive() or time.monotonic() - t_start > 600:
+                raise AssertionError(f"serve7: job B stalled at {progress[-1:]}: "
+                                     f"{c.get_job_status(jid)}")
+            time.sleep(0.02)
+
+        # -- the interactive burst -----------------------------------------
+        t_burst = time.monotonic()
+        barrier = threading.Barrier(n_sessions + 1, timeout=900)
+        turn3 = threading.Event()
+        ttft, itl, replies = [], [], []
+
+        def chat(messages, sid, stream):
+            t0 = time.monotonic()
+            if not stream:
+                out = c.chat(messages, model=catalog, max_tokens=n_new, temperature=0.0,
+                             session_id=sid)
+                ch = out["choices"][0]
+                return out["id"], ch["message"]["content"], ch["finish_reason"]
+            parts, times, rid, finish = [], [], None, None
+            for chunk in c.chat(messages, model=catalog, stream=True, max_tokens=n_new,
+                                temperature=0.0, session_id=sid):
+                rid = chunk["id"]
+                ch = chunk["choices"][0]
+                if ch["delta"].get("content"):
+                    parts.append(ch["delta"]["content"])
+                    times.append(time.monotonic())
+                finish = ch["finish_reason"] or finish
+            with lock:
+                if times:
+                    ttft.append(times[0] - t0)
+                    itl.extend(np.diff(times).tolist())
+            return rid, "".join(parts), finish
+
+        def session(i):
+            r = np.random.default_rng(seed + 100 + i)
+            try:
+                for turn in range(3):
+                    if turn == 2:
+                        barrier.wait()
+                        turn3.wait(900)
+                    msgs = [{"role": "system", "content": system},
+                            {"role": "user", "content": text(r, r.integers(32, 129))}]
+                    rid, content, finish = chat(msgs, f"s{i}", i < n_stream)
+                    with lock:
+                        replies.append((rid, content, finish, i < n_stream, f"s{i}/{turn}"))
+            except Exception:  # noqa: BLE001 — reported below
+                errors.append(traceback.format_exc())
+                barrier.abort()
+
+        def oneshot(i):
+            r = np.random.default_rng(seed + 200 + i)
+            try:
+                out = c._remote_json("post", "v1/completions", json={
+                    "model": catalog, "prompt": text(r, r.integers(20, 50)),
+                    "max_tokens": n_new, "temperature": 0.0})
+                ch = out["choices"][0]
+                with lock:
+                    replies.append((out["id"], ch["text"], ch["finish_reason"], False,
+                                    f"oneshot{i}"))
+            except Exception:  # noqa: BLE001
+                errors.append(traceback.format_exc())
+
+        threads = []
+        for i in range(n_sessions):
+            threads.append(threading.Thread(target=session, args=(i,), daemon=True))
+            threads[-1].start()
+            if i < n_oneshot:
+                threads.append(threading.Thread(target=oneshot, args=(i,), daemon=True))
+                threads[-1].start()
+            time.sleep(0.25)
+        try:
+            barrier.wait()
+        except threading.BrokenBarrierError:
+            raise AssertionError("serve7: a session failed before turn 3:\n" + "\n".join(errors))
+        posted = gw.checkpoint_idle(0.0)
+        turn3.set()
+        for t in threads:
+            t.join(timeout=900)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError("serve7: interactive requests failed:\n" + "\n".join(errors))
+        t_burst_end = time.monotonic()
+        metrics_burst = c.get_metrics_text()
+        if c.await_job_completion(jid, obtain_results=False, timeout=900) != jid:
+            raise AssertionError(f"serve7: job B ended {c.get_job_status(jid)}")
+        follower.join(timeout=60)
+        t_b_end = time.monotonic()
+        metrics_b = c.get_metrics_text()
+        # B's session timer: its phases' host time, kv_demote and
+        # kv_promote (tier reads, writes and int8 math) among them
+        b_perf = {k: {"total_s": v["total_s"], "count": v["count"]}
+                  for k, v in c._fetch_job(jid)["perf"].items()
+                  if isinstance(v, dict) and "total_s" in v}
+
+        # -- checks: B, the replies, the store, the tier -------------------
+        res = c._remote_json("post", "job-results", json={
+            "job_id": jid, "include_inputs": True, "include_cumulative_logprobs": True})[
+                "results"]
+        if res["inputs"] != rows_b or len(res["outputs"]) != n_rows or "errors" in res or not all(
+                0 <= g <= n_new for g in res["gen_tokens"]):
+            raise AssertionError("serve7: job B's results are not 1:1 with its rows: "
+                                 f"{len(res['outputs'])} outputs, errors "
+                                 f"{res.get('errors')}, gen_tokens {res['gen_tokens']}")
+        if end != [{"t": "end", "status": "SUCCEEDED"}] or progress[-1][1] != n_rows:
+            raise AssertionError(f"serve7: B's stream ended {end} at {progress[-1:]}")
+        for rid, content, finish, streamed, label in replies:
+            rec = irs[rid].channel.result
+            if finish not in ("stop", "length") or rec is None or (
+                    rec["finish_reason"] not in ("stop", "length")):
+                raise AssertionError(f"serve7: {label} ended {finish!r}, {rec}")
+            if content != rec["text"]:
+                raise AssertionError(f"serve7: {label}'s deltas differ from its final text")
+        if len(replies) != 3 * n_sessions + n_oneshot:
+            raise AssertionError(f"serve7: {len(replies)} replies")
+        finishes = {"stop": [0, 0], "length": [0, 0]}   # [streamed, collected]
+        for _, _, finish, streamed, _ in replies:
+            finishes[finish][0 if streamed else 1] += 1
+        # no chat turn may prefill S's pages again: each skips them,
+        # found warm in the store (B's shell put them there) or promoted
+        # from the tier (once B is done, S's pages can be demoted with
+        # the idle sessions'); and the gateway's submit-time probe must
+        # find them in the store for some
+        s_head = len(shared_head([np.asarray(x, np.int32) for x in encode_chat_batch(
+            tok, ["first user turn", "another one"], system, mcfg.chat_template)], PSz))
+        chats = [irs[rid] for rid, *_, label in replies if label.startswith("s")]
+        chat_warm = [ir.warm_tokens for ir in chats]
+        chat_saved = [ir.ctx.prefix_saved for ir in chats]
+        if not s_head or min(chat_saved) < s_head or max(chat_warm) < s_head:
+            raise AssertionError(f"serve7: chat turns skipped {min(chat_saved)} tokens and found "
+                                 f"up to {max(chat_warm)} warm, not S's {s_head}")
+        store = engine._prefix_stores[mcfg.name]
+        tier = engine._kv_tiers[mcfg.name]
+        tier.drain(30)
+        ids = sorted(set(live) & set(store.owned_pages()))
+        worst, checked = 0.0, len(ids)
+        for i in range(0, len(ids), 8):
+            got = runner.read_pages(ids[i : i + 8])
+            for j, page in enumerate(ids[i : i + 8]):
+                raw = demoted[live[page]]
+                q = kvtier.quantize_payload(raw)
+                for k in "kv":
+                    deq = q[k].astype(np.float32) * q[k + "s"][..., None]
+                    bound = q[k + "s"][..., None] / 2 + np.abs(deq) * 2.0 ** -8 + 1e-6
+                    err = np.abs(got[k][:, j : j + 1] - raw[k])
+                    worst = max(worst, float((err / bound).max()))
+        if not checked or worst > 1.0:
+            raise AssertionError(f"serve7: {checked} promoted pages checked, worst error "
+                                 f"{worst:.3f} of the int8 round-trip bound")
+        census = tier.op_census()
+        store_stats = {"hits": store.hits, "misses": store.misses,
+                       "tokens_saved": store.tokens_saved, "pages": store.n_pages,
+                       "evictions": store.evictions, "demotions": store.demotions,
+                       "promotions": store.promotions}
+        if store.hits < 2 or census["promotes"] < 1 or census["demotes"] < 1 or posted < 1:
+            raise AssertionError(f"serve7: store {store_stats}, tier {census}, "
+                                 f"checkpoint posted {posted}")
+        page_bytes = int(sum(v.nbytes for v in kvtier.quantize_payload(
+            next(iter(demoted.values()))).values()))
+
+        # -- 4 requests replayed one at a time: streamed == collected ------
+        r = np.random.default_rng(seed + 300)
+        replay = [
+            ("v1/chat/completions", {"messages": [
+                {"role": "system", "content": system},
+                {"role": "user", "content": text(r, 60)}]}),
+            ("v1/chat/completions", {"messages": [{"role": "user", "content": text(r, 40)}]}),
+            ("v1/completions", {"prompt": text(r, 30)}),     # no prefix group
+            ("v1/completions", {"prompt": text(r, 300)}),
+        ]
+        def ask(path, body):
+            """(collected text and finish, streamed text and finish)."""
+            chat = "chat" in path
+            ch = c._remote_json("post", path, json=body)["choices"][0]
+            collected = (ch["message"]["content"] if chat else ch["text"], ch["finish_reason"])
+            resp = c.do_request("post", path, json={**body, "stream": True}, stream=True)
+            resp.raise_for_status()
+            parts, finish = [], None
+            for raw_line in resp.iter_lines():
+                line = raw_line.decode()
+                if not line.startswith("data:") or line[5:].strip() == "[DONE]":
+                    continue
+                ch = json.loads(line[5:])["choices"][0]
+                parts.append(ch["delta"].get("content", "") if chat else ch.get("text", ""))
+                finish = ch["finish_reason"] or finish
+            return collected, ("".join(parts), finish)
+
+        replayed = []
+        for path, body in replay:
+            body = {"model": catalog, "max_tokens": n_new // 4, "temperature": 0.0, **body}
+            collected, streamed = ask(path, body)
+            if streamed != collected:
+                raise AssertionError(f"serve7: replay of {path}: streamed and collected "
+                                     f"replies differ: {streamed} {collected}")
+            text_c, finish = collected
+            rec = {"path": path, "finish": finish, "chars": len(text_c)}
+            # the first of each route's requests again, stopped by a stop
+            # string: a printable ASCII character (one byte token) new at
+            # its place in the reply, the second such if there is one.
+            # EOS never wins under these random weights: this is the path
+            # by which a reply ends "stop"
+            new = [i for i, x in enumerate(text_c) if " " <= x <= "~" and x not in text_c[:i]]
+            at = new[1] if len(new) > 1 else new[0] if new else None
+            if at is not None and not any("stopped_at" in r for r in replayed
+                                          if r["path"] == path):
+                got = ask(path, {**body, "stop": [text_c[at]]})
+                if got != ((text_c[:at], "stop"),) * 2:
+                    raise AssertionError(f"serve7: replay of {path} with stop "
+                                         f"{text_c[at]!r}: {got}, not {text_c[:at]!r}")
+                rec["stopped_at"] = at
+            replayed.append(rec)
+        if head is not None and (not ttft or not all(
+                r["chars"] or r["finish"] == "stop" for r in replayed)):
+            raise AssertionError(f"serve7: replies without text: {len(ttft)} timed, {replayed}")
+        if sum("stopped_at" in r for r in replayed) != 2:
+            raise AssertionError(f"serve7: a route's replays did not end 'stop': {replayed}")
+
+        # -- graceful shutdown with two streams in flight ------------------
+        started, ends = threading.Barrier(3, timeout=600), []
+
+        def long_stream(i):
+            try:
+                # long enough to be in flight when the late request lands
+                it = c.chat(f"tell me more {i}", model=catalog, stream=True,
+                            max_tokens=2 * n_new, temperature=0.0)
+                first = next(it)
+                started.wait()
+                rest = list(it)
+                ends.append((rest[-1] if rest else first)["choices"][0]["finish_reason"])
+            except Exception:  # noqa: BLE001
+                errors.append(traceback.format_exc())
+                started.abort()
+
+        streams = [threading.Thread(target=long_stream, args=(i,), daemon=True) for i in range(2)]
+        for t in streams:
+            t.start()
+        started.wait()
+        shut = threading.Thread(target=_graceful_shutdown, args=(engine, srv, 120), daemon=True)
+        shut.start()
+        while not getattr(srv, "draining", False):
+            time.sleep(0.001)
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                f"{url}/v1/chat/completions", method="POST",
+                data=json.dumps({"model": catalog, "messages": [
+                    {"role": "user", "content": "late"}]}).encode()), timeout=60)
+            late = 200
+        except urllib.error.HTTPError as e:
+            late = e.code
+        for t in (*streams, shut):
+            t.join(timeout=300)
+        srv_thread.join(timeout=60)
+        if late != 503 or errors or srv_thread.is_alive() or shut.is_alive() or (
+                sorted(ends) != sorted(e for e in ends if e in ("stop", "length"))) or len(
+                ends) != 2:
+            raise AssertionError(f"serve7: graceful shutdown: late request {late}, streams "
+                                 f"{ends}, server alive {srv_thread.is_alive()}: {errors}")
+        wall = time.monotonic() - t_start
+        launches = {k.name: k.launches for k in (*kernels, *absent)}
+
+        # -- the logits checks, on the idle engine's runner, whole head ----
+        if head is not None:
+            with torch.no_grad():
+                head.copy_(whole)
+            del whole
+        # a warm request's first step against its cold prefill
+        prompt = np.asarray(encode_chat_batch(
+            tok, [replay[0][1]["messages"][1]["content"]], system, mcfg.chat_template)[0],
+            np.int32)
+        h = store.lookup_pin(prompt[: ((len(prompt) - 1) // PSz) * PSz])
+        try:
+            if not h.tokens:
+                raise AssertionError("serve7: the replayed request is not warm in the store")
+            owned = set(store.owned_pages())
+            free = [p for p in range(1, runner.alloc_pages) if p not in owned]
+            need = pages_needed(len(prompt), PSz)
+            table = np.zeros((ecfg.max_pages_per_seq,), np.int32)
+            table[: need] = h.pages + free[: need - len(h.pages)]
+            warm = runner.prefill(prompt[h.tokens:], table, start=h.tokens)
+            table[: need] = free[need : 2 * need]
+            cold = runner.prefill(prompt, table, 0)
+        finally:
+            store.release(h)
+        rel = float(np.linalg.norm(warm - cold) / np.linalg.norm(cold))
+        if not (np.isfinite(warm).all() and rel < REL_L2):
+            raise AssertionError(f"serve7: warm logits vs cold prefill: rel_l2={rel}")
+        # both carry kernels and the decode at this serve's shape: a
+        # decode step of two sets of 8 of B's rows with and without S's
+        # shared pages as prefix groups, one group, then two live in one
+        # step (pages 1.. of the pool: the store's pages are not read
+        # again)
+        prompts = [np.asarray(x, np.int32) for x in encode_chat_batch(
+            tok, rows_b, system, mcfg.chat_template)]
+        template = shared_head(prompts, PSz)
+        n_pfx = online_prefix_pages(seed, system_chars, model, PSz)
+        if not n_pfx or len(template) != n_pfx * PSz:
+            raise AssertionError(f"serve7: B's rows share {len(template)} tokens, not the "
+                                 f"{n_pfx} pages of the kernel phase's shape")
+        split_checks = [check_split_decode(torch, runner, template, prompts[i : i + 8], rng,
+                                           f"serve7 rows {i}-{i + 7}", n_groups=g)
+                        for i, g in ((0, 1), (8, 2))]
+    finally:
+        if smi is not None:
+            smi.terminate()
+            smi.wait(timeout=30)
+        ContinuousBatcher.tier_observer = None
+        srv.shutdown()
+        engine.close(timeout=30)
+        engine._runner_cache.clear()
+
+    def rate(t0, t1):
+        pts = [(t, n) for t, n in tokens_seen if t0 <= t <= t1]
+        if len(pts) < 2:
+            return None
+        return (pts[-1][1] - pts[0][1]) / (pts[-1][0] - pts[0][0])
+
+    def busy(t0, t1):
+        xs = [u for t, u in util if t0 <= t <= t1]
+        return float(np.mean(xs)) / 100 if xs else None
+
+    hist = {n: metrics_histogram(metrics_burst, f"sutro_interactive_{n}_seconds")
+            for n in ("ttft", "itl")}
+    # the tier's host time in every session up to B's end (kv_promote
+    # holds the prefix promotions and the suspended rows' resumes)
+    stages = {}
+    for st in ("kv_demote", "kv_promote"):
+        (s1, n1), (s0, n0) = stage_seconds(metrics_b, st), stage_seconds(metrics_start, st)
+        stages[st] = {"total_s": s1 - s0, "count": n1 - n0}
+    out = {
+        "card": card, "wall_s": wall, "rows": n_rows, "sessions": n_sessions,
+        "streamed": n_stream, "oneshot": n_oneshot,
+        "b_wall_s": t_b_end - t_start, "burst_s": t_burst_end - t_burst, "b_perf": b_perf,
+        "b_decode_tok_s_before_burst": rate(t_start, t_burst),
+        "b_decode_tok_s_during_burst": rate(t_burst, min(t_burst_end, t_b_end)),
+        "card_busy_share": {"before_burst": busy(t_start, t_burst),
+                            "during_burst": busy(t_burst, t_burst_end),
+                            "whole_serve": busy(t_start, t_start + wall)},
+        "client_ttft": quantiles(ttft), "client_itl": quantiles(itl),
+        "server_ttft": hist["ttft"], "server_itl": hist["itl"],
+        "rows_suspended_for_interactive": metric_total(
+            metrics_burst, "sutro_interactive_preemptions_total"),
+        "checkpoint_posted": posted,
+        "store": store_stats,
+        "chat_warm_tokens": {"system_prompt_pages_tokens": s_head, "min": min(chat_warm),
+                             "mean": float(np.mean(chat_warm)),
+                             "turns_warm_at_submit": int(sum(w >= s_head for w in chat_warm)),
+                             "min_skipped": int(min(chat_saved))},
+        "tier": {**census, "int8_page_bytes": page_bytes,
+                 "prefix_pages_demoted": moved["demote"],
+                 "prefix_pages_promoted": moved["promote"],
+                 "int8_bytes_demoted": page_bytes * moved["demote"],
+                 "int8_bytes_promoted": page_bytes * moved["promote"], **stages,
+                 "promoted_pages_checked": checked, "worst_err_of_bound": worst},
+        "finishes_streamed_collected": finishes,
+        "replayed": replayed, "warm_vs_cold_rel_l2": rel,
+        "warm_tokens": int(h.tokens), "shared_prefix_tokens": len(template),
+        "split_vs_full_rel_l2": [x[0] for x in split_checks],
+        "split_vs_full_layer0_attn_max_abs": [x[1] for x in split_checks],
+        "launches": launches,
+    }
+    for k in kernels:
+        if launches[k.name] <= 0:
+            raise AssertionError(f"serve7: kernel {k.name} was not launched by the serve")
+    for k in absent:
+        if launches[k.name]:
+            raise AssertionError(f"serve7: kernel {k.name} launched {launches[k.name]} times")
+    print("serve7: " + json.dumps(out), flush=True)
+    print(f"serve7: card={card} wall_s={wall:.2f} B rows={n_rows} b_wall_s={out['b_wall_s']:.2f} "
+          f"b_decode_tok_s before={out['b_decode_tok_s_before_burst']} during="
+          f"{out['b_decode_tok_s_during_burst']} card_busy_share="
+          f"{json.dumps(out['card_busy_share'])} client_ttft={json.dumps(out['client_ttft'])} "
+          f"client_itl={json.dumps(out['client_itl'])} server_ttft={json.dumps(hist['ttft'])} "
+          f"server_itl={json.dumps(hist['itl'])} chat_warm_tokens="
+          f"{json.dumps(out['chat_warm_tokens'])} suspended="
+          f"{out['rows_suspended_for_interactive']} store={json.dumps(store_stats)} "
+          f"tier={json.dumps(out['tier'])} finishes={json.dumps(finishes)} "
+          f"warm_vs_cold_rel_l2={rel:.3e} launches={json.dumps(launches)}", flush=True)
+    return out
+
+
+def online_summary(out: dict) -> dict:
+    """Serve 7's headline figures, for a line near the end of the output."""
+    pick = lambda d: {k: d.get(k) for k in ("n", "p50_s", "p99_s")}  # noqa: E731
+    return {
+        "card": out["card"], "wall_s": out["wall_s"], "b_wall_s": out["b_wall_s"],
+        "burst_s": out["burst_s"],
+        "b_decode_tok_s": [out["b_decode_tok_s_before_burst"],
+                           out["b_decode_tok_s_during_burst"]],
+        "client_ttft": pick(out["client_ttft"]), "client_itl": pick(out["client_itl"]),
+        "card_busy_share": out["card_busy_share"],
+        "suspended": out["rows_suspended_for_interactive"],
+        "tokens_saved": out["store"]["tokens_saved"],
+        "kv_promote": out["tier"]["kv_promote"], "kv_demote": out["tier"]["kv_demote"],
+        "finishes": out["finishes_streamed_collected"],
+    }
 
 
 EMBED_MODEL = "qwen3-emb-0.6b"          # catalog name qwen-3-embedding-0.6b
@@ -2447,6 +3120,8 @@ def main() -> int:
 
 
 def run(torch, args, home: Path) -> int:
+    import shutil
+
     import sutro_tpu_torch
 
     from sutro_tpu_torch.engine.runner import set_matmul_precision
@@ -2529,6 +3204,13 @@ def run(torch, args, home: Path) -> int:
     served["qwen3-8b façade"] = serve_facade(torch, runners, facade_path, facade_absent,
                                              card, home)
     free_card(torch, "qwen3-8b")
+    # serve 7: online serving over HTTP on the checkpoint serve 5 wrote
+    ckpt = Path(served["qwen3-8b façade"]["checkpoint"]["dir"])
+    try:
+        served["qwen3-8b serving"] = serve_online(torch, facade_path, facade_absent, card, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    free_card(torch, "qwen3-8b")
     # serve 6: embedding jobs through the façade, one from a dataset
     served["qwen3-emb-0.6b"] = serve_embed(torch, embed_path, embed_absent, card, home)
     # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
@@ -2569,6 +3251,7 @@ def run(torch, args, home: Path) -> int:
             **({"timed_cases": rec["timed_cases"]} if "timed_cases" in rec else {}),
         })
     print(json.dumps({"kernels": kernels}))
+    print("serve7 summary: " + json.dumps(online_summary(served["qwen3-8b serving"])))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -28,13 +28,26 @@ getters (``job_telemetry``, ``get_trace``, ``diagnose_job``) read the
 flight recorder through ``telemetry/traceexport.py`` and
 ``telemetry/doctor.py``.
 
+Online serving (``EngineConfig.interactive_slots > 0``): the
+interactive gateway (``serving/gateway.py``) parks each OpenAI request
+as a 1-row job at priority -1 and wakes the worker with a
+``serve:<engine_key>`` queue sentinel; a running co-batched session of
+that model adopts it directly (``poll_new``), an idle worker starts a
+serving-only session, and a session of another model yields to it.
+Every batcher gets the engine-lifetime radix prefix store
+(``engine/prefixstore.py``; on by default, ``SUTRO_PREFIX_STORE=0``
+turns it off) and, with ``kv_tiers=True``, the host/disk KV tiers
+(``engine/kvtier.py``; ``SUTRO_KV_TIERS``), one of each per resident
+runner. ``fleet_state`` is the load report the server's
+``/fleet-state`` frame carries.
+
 Left out (each raises ``NotImplementedError`` naming its ROADMAP.md
-item, or is never constructed): data-parallel engines (the embedding
-job's data-parallel branch too) and the control plane, the interactive
-gateway and serving sessions, the live monitor, the KV tiers and the
-radix prefix store (the batcher gets ``prefix_store=None,
-kv_tier=None``), stage graphs, ``fleet_state``, ``job_fleet`` and
-device traces (``profile_dir``).
+item): data-parallel engines (``SUTRO_DP_WORLD`` above 1, the
+embedding job's data-parallel branch too, ``job_fleet``), the control
+plane (``EngineConfig.control`` / ``SUTRO_CONTROL``), stage graphs (a
+``stages`` payload) and the live monitor (``monitor_doc`` raises
+``KeyError``, the reference's answer with its monitor off). Device
+traces (``profile_dir``) are not taken.
 """
 
 from __future__ import annotations
@@ -120,6 +133,34 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+def _check_dp_world() -> None:
+    """``SUTRO_DP_WORLD`` above 1 asks for data-parallel engines, which
+    are not ported: refuse it (at construction and at every job)."""
+    if int(os.environ.get("SUTRO_DP_WORLD", "1") or 1) > 1:
+        raise _not_ported("data-parallel engines (SUTRO_DP_WORLD)", "Multi-GPU")
+
+
+def _token_bytes_of(tok):
+    """The tokenizer's byte view of a token id (stop-sequence detection),
+    or None when it has none: base-class stubs raise, so probe once."""
+    token_bytes = getattr(tok, "token_bytes", None)
+    if token_bytes is not None:
+        try:
+            token_bytes(0)
+        except Exception:  # noqa: BLE001 — any raise means no byte view
+            token_bytes = None
+    return token_bytes
+
+
+def _env_switch(name: str, default: bool) -> bool:
+    """An engine kill switch: ``$name`` overrides ``default``; ``0``,
+    ``off``, ``false`` and empty mean off."""
+    env = os.environ.get(name)
+    if env is None:
+        return bool(default)
+    return env.strip().lower() not in ("0", "off", "false", "")
+
+
 def resolve_model(model: str) -> Tuple[str, ModelConfig, Dict[str, Any]]:
     """Public model name (or raw engine key) -> (engine_key, config, meta)."""
     meta = MODEL_CATALOG.get(model)
@@ -145,8 +186,7 @@ class LocalEngine:
     def __init__(self, ecfg: Optional[EngineConfig] = None, *, device="cuda"):
         self.ecfg = ecfg or load_engine_config()
         self.device = device
-        if getattr(self.ecfg, "interactive_slots", 0) > 0:
-            raise _not_ported("the interactive serving tier", "Serving and fleet")
+        _check_dp_world()
         # the JAX engine's enablement rule: $SUTRO_CONTROL overrides
         # EngineConfig.control; empty/0/off/false/none mean off
         control = os.environ.get("SUTRO_CONTROL", self.ecfg.control)
@@ -179,6 +219,18 @@ class LocalEngine:
         self._lock = threading.Lock()
         self._runner_cache: Dict[str, Tuple[ModelRunner, BaseTokenizer]] = {}
         self._tok_cache: Dict[str, BaseTokenizer] = {}
+        # Engine-lifetime radix prefix stores and tiered KV pools, one of
+        # each per resident runner (engine/prefixstore.py,
+        # engine/kvtier.py): their pages and payloads belong to that
+        # runner's KV pool, so evicting the runner closes both
+        self._prefix_stores: Dict[str, Any] = {}
+        self._kv_tiers: Dict[str, Any] = {}
+        # the interactive serving tier exists only with a slot budget
+        self.gateway = None
+        if getattr(self.ecfg, "interactive_slots", 0) > 0:
+            from ..serving.gateway import InteractiveGateway
+
+            self.gateway = InteractiveGateway(self)
         self._worker = threading.Thread(
             target=self._worker_loop, daemon=True, name="sutro-engine"
         )
@@ -330,6 +382,12 @@ class LocalEngine:
         it can never attach (different head, dry run, unresolvable).
         Cached: the verdict is immutable per job, and this runs on the
         scheduler loop's cadence."""
+        if jid.startswith("serve:"):
+            # serving-wake sentinel (_enqueue_serving): attaches to a
+            # same-key session; for any other session it reads as an
+            # unattachable higher-priority entry, forcing the yield that
+            # gets the interactive request onto the device
+            return jid[6:]
         cached = self._attach_info.get(jid)
         if cached is not None:
             return cached[0]
@@ -404,6 +462,13 @@ class LocalEngine:
                 self._queued.discard(jid)
                 self._queued_prio.pop(jid, None)
             self._attach_info.pop(jid, None)
+            if jid.startswith("serve:"):
+                # same-key serving sentinel: the running session polls
+                # the gateway directly (poll_new), so the wake-up is
+                # already served — consume it and keep scanning
+                if self.gateway is not None:
+                    self.gateway.sentinel_popped(engine_key)
+                continue
             if jid in self._cancel:
                 # mirrors the worker-pop cancel check
                 self.jobs.set_status(jid, JobStatus.CANCELLED)
@@ -424,6 +489,14 @@ class LocalEngine:
         with self._lock:
             seq = self._reserve_queue_entry(priority, job_id)
             self._queue.put((priority, seq, job_id))
+
+    def _enqueue_serving(self, engine_key: str) -> None:
+        """Wake the worker for a parked interactive request: a
+        ``serve:<engine_key>`` sentinel at priority -1 — ahead of every
+        batch priority (all non-negative), so an idle worker starts a
+        serving session immediately and a busy different-model session
+        sees an unattachable higher entry and yields."""
+        self._enqueue(-1, f"serve:{engine_key}")
 
     def job_status(self, job_id: str) -> str:
         return self.jobs.status(job_id).value
@@ -632,7 +705,36 @@ class LocalEngine:
         )
 
     def fleet_state(self) -> Dict[str, Any]:
-        raise _not_ported("fleet_state", "Serving and fleet")
+        """Load and readiness report (served as a ``fleet_state`` frame
+        by ``GET /fleet-state``). Cheap: lock-held counter reads only."""
+        with self._lock:
+            queued = len([j for j in self._queued if not j.startswith("serve:")])
+            running = len([j for j in self._attached if not j.startswith("serve:")])
+            cur = self._current_job
+            if cur is not None and not cur.startswith("serve:"):
+                running += 1
+            models = sorted(self._runner_cache.keys())
+        gw = self.gateway
+        return {
+            "ready": True,
+            "draining": bool(gw is not None and gw.draining),
+            "load": {
+                "jobs_queued": queued,
+                "jobs_running": running,
+                "interactive_active": gw.active_count() if gw is not None else 0,
+                "interactive_slots": int(getattr(self.ecfg, "interactive_slots", 0)),
+            },
+            "models": models,
+        }
+
+    def monitor_doc(self) -> Dict[str, Any]:
+        """The ``GET /monitor`` document: the live monitor is not
+        ported, so this is the reference's answer with its monitor off
+        (``KeyError``, a 404 upstream)."""
+        raise KeyError(
+            "live monitor disabled (not ported to the CUDA engine yet: "
+            "ROADMAP.md §1, 'Serving and fleet')"
+        )
 
     def job_fleet(self, job_id: str) -> Dict[str, Any]:
         raise _not_ported("job_fleet (data-parallel engines)", "Multi-GPU")
@@ -680,11 +782,21 @@ class LocalEngine:
         # below cannot double-build
         weights_dir = self._weights_dir_for(engine_key)
         tok = self._get_tokenizer(engine_key, mcfg)
+        evicted_store = evicted_tier = None
         with self._lock:
             # keep at most two runners resident (device memory budget);
-            # the evicted runner is dropped BEFORE the new one is built
+            # the evicted runner is dropped BEFORE the new one is built.
+            # Its KV pool dies with it, so its prefix store and tier
+            # pool close too
             if len(self._runner_cache) >= 2:
-                self._runner_cache.pop(next(iter(self._runner_cache)))
+                evicted = next(iter(self._runner_cache))
+                self._runner_cache.pop(evicted)
+                evicted_store = self._prefix_stores.pop(evicted, None)
+                evicted_tier = self._kv_tiers.pop(evicted, None)
+        if evicted_store is not None:
+            evicted_store.close()
+        if evicted_tier is not None:
+            evicted_tier.close()
         params = None
         if weights_dir:
             from .weights import load_checkpoint
@@ -697,14 +809,78 @@ class LocalEngine:
             self._runner_cache[engine_key] = (runner, tok)
         return runner, tok
 
+    def _prefix_store_for(self, engine_key: str):
+        """The engine-lifetime radix prefix store for this runner, or
+        None when ``SUTRO_PREFIX_STORE`` / ``EngineConfig.prefix_store``
+        turn it off — the scheduler then runs the per-job prefix path."""
+        if not _env_switch("SUTRO_PREFIX_STORE", getattr(self.ecfg, "prefix_store", True)):
+            return None
+        with self._lock:
+            store = self._prefix_stores.get(engine_key)
+            if store is None:
+                from .prefixstore import PrefixStore
+
+                store = self._prefix_stores[engine_key] = PrefixStore(
+                    self.ecfg.kv_page_size
+                )
+        return store
+
+    def _kv_tier_for(self, engine_key: str):
+        """The engine-lifetime tiered KV pool (device -> host -> disk)
+        for this runner, or None when ``SUTRO_KV_TIERS`` /
+        ``EngineConfig.kv_tiers`` (off by default) turn it off — every
+        demote, promote and hibernate path is then dead code."""
+        if not _env_switch("SUTRO_KV_TIERS", getattr(self.ecfg, "kv_tiers", False)):
+            return None
+        with self._lock:
+            tier = self._kv_tiers.get(engine_key)
+            if tier is None:
+                from .config import sutro_home
+                from .kvtier import KVTierPool
+
+                disk_dir = None
+                if getattr(self.ecfg, "kv_tier_disk", True):
+                    disk_dir = sutro_home() / "kvtier"
+                tier = self._kv_tiers[engine_key] = KVTierPool(
+                    self.ecfg.kv_page_size,
+                    host_pages=getattr(self.ecfg, "kv_tier_host_pages", 4096),
+                    disk_dir=disk_dir,
+                )
+        return tier
+
+    def prefix_warm_tokens(self, engine_key: str, ids) -> int:
+        """Non-mutating warm-prefix probe for the serving gateway: how
+        many leading tokens of ``ids`` already have resident KV. Zero
+        when the store is off or cold — never raises."""
+        with self._lock:
+            store = self._prefix_stores.get(engine_key)
+        if store is None:
+            return 0
+        try:
+            return store.peek(ids)
+        except Exception:  # noqa: BLE001 — a probe never fails a submit
+            return 0
+
     def close(self, timeout: float = 10.0) -> bool:
         """Stop the worker thread with a bounded join. The sentinel
         sorts ahead of every real job, so an idle worker exits
         immediately; a worker mid-job finishes that job first and the
         join may time out — the thread is daemonic either way. Returns
-        True when the worker actually exited."""
+        True when the worker actually exited. The prefix stores close
+        (a closed store refuses extends, so a racing session runs the
+        storeless path) and the tier pools park their migration
+        workers."""
         self._queue.put(_WORKER_STOP)
         self._worker.join(timeout=timeout)
+        with self._lock:
+            stores = list(self._prefix_stores.values())
+            self._prefix_stores.clear()
+            tiers = list(self._kv_tiers.values())
+            self._kv_tiers.clear()
+        for store in stores:
+            store.close()
+        for tier in tiers:
+            tier.close()
         return not self._worker.is_alive()
 
     def _worker_loop(self) -> None:
@@ -716,6 +892,20 @@ class LocalEngine:
                 self._queued.discard(job_id)
                 self._queued_prio.pop(job_id, None)
                 self._current_job = job_id
+            if job_id.startswith("serve:"):
+                # serving-wake sentinel: run an interactive session for
+                # the key (no job record, no jobstore epilogue)
+                engine_key = job_id[6:]
+                if self.gateway is not None:
+                    self.gateway.sentinel_popped(engine_key)
+                try:
+                    self._run_serving_session(engine_key)
+                except Exception:  # noqa: BLE001 — session isolation
+                    traceback.print_exc()
+                finally:
+                    with self._lock:
+                        self._current_job = None
+                continue
             if telemetry.enabled():
                 with self._lock:
                     n_attached = len(self._attached)
@@ -772,8 +962,7 @@ class LocalEngine:
         engine_key, mcfg, meta = resolve_model(rec.model)
         if rec.stages:
             raise _not_ported("stage-graph jobs", "Serving and fleet")
-        if int(os.environ.get("SUTRO_DP_WORLD", "1") or 1) > 1:
-            raise _not_ported("data-parallel engines (SUTRO_DP_WORLD)", "Multi-GPU")
+        _check_dp_world()
 
         if rec.dry_run:
             # dry runs tokenize only: no runner is built
@@ -833,20 +1022,55 @@ class LocalEngine:
             stop_ids=getattr(tok, "stop_ids", lambda: [tok.eos_id])(),
             seed=self.ecfg.seed,
             token_bytes=sess.token_bytes,
-            prefix_store=None,
-            kv_tier=None,
+            prefix_store=self._prefix_store_for(engine_key),
+            kv_tier=self._kv_tier_for(engine_key),
         )
         return self._run_cobatch_session(job_id, engine_key, sess, batcher)
 
+    def _run_serving_session(self, engine_key: str) -> None:
+        """Serving-only co-batch session: no primary batch job, just
+        interactive requests adopted through the gateway (plus any
+        same-model batch jobs that attach mid-session through the
+        queue scan)."""
+        gw = self.gateway
+        if gw is None or not gw.has_pending(engine_key):
+            return
+        mcfg = MODEL_CONFIGS.get(engine_key)
+        if mcfg is None:
+            return
+        runner, tok = self._get_runner(engine_key, mcfg)
+        batcher = ContinuousBatcher(
+            runner,
+            stop_ids=getattr(tok, "stop_ids", lambda: [tok.eos_id])(),
+            seed=self.ecfg.seed,
+            token_bytes=_token_bytes_of(tok),
+            prefix_store=self._prefix_store_for(engine_key),
+            kv_tier=self._kv_tier_for(engine_key),
+        )
+        self._run_cobatch_session(None, engine_key, None, batcher)
+
     def _run_cobatch_session(
-        self, job_id: str, engine_key: str, sess: "_GenSession", batcher,
+        self, job_id: Optional[str], engine_key: str,
+        sess: "Optional[_GenSession]", batcher,
     ) -> Optional[int]:
         """Drive the primary job and any attachable queued same-model
         jobs through ONE scheduler session (cross-job co-batching).
         Returns the primary's requeue priority on preemption yield, else
-        None (each job's terminal state is set as it finishes)."""
-        sess.session_job = job_id
-        sessions: Dict[str, _GenSession] = {job_id: sess}
+        None (each job's terminal state is set as it finishes).
+
+        ``sess=None`` runs a serving-only session
+        (``_run_serving_session``): the loop starts empty and lives off
+        gateway adoptions. Either way, when a gateway exists its parked
+        interactive requests are adopted ahead of the queue scan — they
+        are 1-row priority -1 ctxs whose results ride the per-request
+        channel, not a session."""
+        sessions: Dict[str, _GenSession] = {}
+        if sess is not None:
+            sess.session_job = job_id
+            sessions[job_id] = sess
+        # live interactive ctxs by request id (gateway-owned lifecycle)
+        iactive: Dict[str, Any] = {}
+        gw = self.gateway
         # in-flight attach build: session construction tokenizes every
         # input row, so it runs on a BACKGROUND thread — the scheduler
         # loop keeps decoding live jobs while an attach prepares. One
@@ -890,6 +1114,13 @@ class LocalEngine:
                 build["done"] = True
 
         def poll_new():
+            # latency-priority adoption: a parked interactive request
+            # enters the live window before any queued batch job
+            if gw is not None:
+                ictx = gw.take_pending(engine_key)
+                if ictx is not None:
+                    iactive[ictx.job_id] = ictx
+                    return ictx
             if build:
                 if not build.get("done"):
                     return None  # build in flight; keep decoding
@@ -933,12 +1164,48 @@ class LocalEngine:
                 self._attached.discard(s2.job_id)
 
         def on_job_done(ctx, outcome: str) -> None:
+            if ctx.job_id in iactive:
+                iactive.pop(ctx.job_id, None)
+                stats = gw.finish(ctx, outcome)
+                if stats:
+                    # doctor evidence: co-resident batch jobs record the
+                    # interactive traffic they shared the window with
+                    for s2 in sessions.values():
+                        if s2.finalized or s2.jtel is None:
+                            continue
+                        ia = s2.jtel.attrs.setdefault(
+                            "interactive",
+                            {"requests": 0, "starved": 0, "ttft_max_s": 0.0},
+                        )
+                        ia["requests"] += 1
+                        if stats.get("starved"):
+                            ia["starved"] += 1
+                        if stats.get("ttft_s") is not None:
+                            ia["ttft_max_s"] = max(
+                                ia["ttft_max_s"], round(stats["ttft_s"], 3)
+                            )
+                return
             s = sessions[ctx.job_id]
             if s.jtel is not None and (ctx.prefix_saved or ctx.prefix_paid):
                 # saved-vs-paid shared-prefix prefill attribution
                 s.jtel.attrs["prefix"] = {
                     "saved_tokens": int(ctx.prefix_saved),
                     "paid_tokens": int(ctx.prefix_paid),
+                }
+            if s.jtel is not None and ctx.stats.get("preempted"):
+                ia = s.jtel.attrs.setdefault(
+                    "interactive",
+                    {"requests": 0, "starved": 0, "ttft_max_s": 0.0},
+                )
+                ia["preempted_rows"] = ctx.stats["preempted"]
+            if s.jtel is not None and batcher._kv_tier is not None:
+                # doctor evidence: the kv_pressure / resume_bound
+                # verdicts key off this (telemetry/doctor.py)
+                s.jtel.attrs["kv_tier"] = {
+                    "demotes": int(batcher.tier_demotes),
+                    "promotes": int(batcher.tier_promotes),
+                    "resumes_upload": int(ctx.stats.get("resumes_upload", 0)),
+                    "resumes_reprefill": int(ctx.stats.get("resumes_reprefill", 0)),
                 }
             # NO try/finally: a raised finalize must leave ``finalized``
             # False so the session-error path below — or the worker
@@ -959,19 +1226,31 @@ class LocalEngine:
             live = [
                 s.ctx.priority for s in sessions.values() if not s.finalized
             ]
+            # a live interactive request (priority -1) outranks every
+            # queued batch job, so min(live) = -1 pins the session
+            live += [c.priority for c in iactive.values() if not c.done]
             if not live:
                 return False
             return self._unattachable_higher_waiting(min(live), engine_key)
 
+        def _fail_live_interactive(outcome: str) -> None:
+            for c in list(iactive.values()):
+                if not c.done:
+                    gw.finish(c, outcome)
+            iactive.clear()
+
         try:
             state = batcher.run_multi(
-                [sess.ctx],
+                [sess.ctx] if sess is not None else [],
                 on_job_done=on_job_done,
                 poll_new=poll_new,
                 should_yield=should_yield,
             )
         except Exception:
             _drain_pending_build()
+            # live interactive requests have no resumable record: their
+            # channels get the error and the client retries
+            _fail_live_interactive("error")
             # fail attached non-terminal jobs; the worker loop's except
             # handles the primary — unless the primary already reached a
             # terminal state, in which case swallow (don't flip it)
@@ -1002,12 +1281,18 @@ class LocalEngine:
                 self.metrics.job(jid2).finish()
                 with self._lock:
                     self._attached.discard(jid2)
-            if sessions[job_id].finalized:
+            if sess is None or sessions[job_id].finalized:
+                # a serving-only session has no primary for the worker
+                # loop's epilogue to fail: the error is handled here
                 traceback.print_exc()
                 return None
             raise
         _drain_pending_build()
         if state == "yielded":
+            # interactive ctxs cannot suspend and resume (their consumer
+            # is a live stream); only reachable if something outranks
+            # priority -1, which the public surface never produces
+            _fail_live_interactive("error")
             requeue = None
             for jid2, s2 in list(sessions.items()):
                 if s2.finalized:
@@ -1209,13 +1494,7 @@ class _GenSession:
         stop_seqs = [s.encode() for s in stop_strs] or None
         # byte view of the vocab (probed once): the batcher needs it for
         # stop-seq detection of ANY co-batched job
-        token_bytes = getattr(tok, "token_bytes", None)
-        if token_bytes is not None:
-            try:  # base-class stubs raise; probe once
-                token_bytes(0)
-            except Exception:
-                token_bytes = None
-        self.token_bytes = token_bytes
+        token_bytes = self.token_bytes = _token_bytes_of(tok)
         if stop_seqs and token_bytes is None:
             warnings.warn(
                 "tokenizer lacks token_bytes; stop sequences only "

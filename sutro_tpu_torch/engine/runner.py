@@ -63,25 +63,13 @@ from ..ops.sampling import (
 from . import faults
 from .config import EngineConfig
 from .kvcache import alloc_cache, write_kv
+from .kvtier import dequantize_payload
 
 def next_bucket(n: int, lo: int = 16, hi: int = 1 << 20) -> int:
     b = lo
     while b < n and b < hi:
         b *= 2
     return b
-
-
-def dequantize_payload(payload: dict, dtype) -> dict:
-    """A tier's int8 payload (values plus per-token scales) -> float
-    values in ``dtype`` (copy of ``sutro_tpu/engine/kvtier.py``'s)."""
-    return {
-        "k": (
-            payload["k"].astype(np.float32) * payload["ks"][..., None]
-        ).astype(dtype),
-        "v": (
-            payload["v"].astype(np.float32) * payload["vs"][..., None]
-        ).astype(dtype),
-    }
 
 
 def set_matmul_precision() -> None:

@@ -393,6 +393,15 @@ class _Hib:
 
 
 class ContinuousBatcher:
+    # observer of the radix store's pages that the KV tier moves, called
+    # on the scheduler thread as ``tier_observer(kind, keys, page_ids,
+    # payload)``: kind "demote" with the payload the runner read off the
+    # pages, or "promote" with the one uploaded into them, once the
+    # store has taken them. None (the default) costs one attribute load
+    # a move; chip_smoke.py's serve 7 sets it (a staticmethod, on the
+    # class) to hold each promotion against its demotion
+    tier_observer = None
+
     def __init__(
         self,
         runner: ModelRunner,
@@ -876,6 +885,10 @@ class ContinuousBatcher:
                     }
                     self._kv_tier.put_page(path_bytes, per)
                 self.tier_demotes += len(pairs)
+                if self.tier_observer is not None:
+                    self.tier_observer(
+                        "demote", [k for k, _ in pairs], ids, raw
+                    )
             except Exception:  # noqa: BLE001 — a failed read degrades
                 # to a plain eviction; the pages still free below
                 logger.warning(
@@ -938,6 +951,10 @@ class ContinuousBatcher:
             return handle
         tier.discard([key for key, _ in hits])
         self.tier_promotes += n
+        if self.tier_observer is not None:
+            self.tier_observer(
+                "promote", [key for key, _ in hits], pages, payload
+            )
         if self._tel_on and ctx.trace_id is not None:
             telemetry.TRACES.event(
                 ctx.trace_id, "kv_promote", {"pages": n}

@@ -1,10 +1,14 @@
 """The ``Sutro`` client: DataFrame-in/DataFrame-out batch inference.
 
-The port of ``sutro_tpu/sdk.py`` for ``backend="tpu"`` (the default;
-the name is the SDK's, and the in-process ``LocalEngine`` of
-``engine/api.py`` runs on a CUDA card). ``"remote"`` and ``"fleet"``
-raise ``NotImplementedError`` until the HTTP transport is ported
-(ROADMAP.md).
+The port of ``sutro_tpu/sdk.py``. ``backend="tpu"`` (the default; the
+name is the SDK's) runs jobs on the in-process ``LocalEngine`` of
+``engine/api.py`` on a CUDA card; ``backend="remote"`` (or ``"fleet"``,
+the same transport) sends the same calls over HTTP to a server
+(``python -m sutro_tpu_torch.server``, or the JAX package's) at
+``base_url``. The transport is the standard library's ``urllib``
+(``do_request``; the card's machine has no ``requests``): it answers
+with a small response object (``status_code``, ``json()``,
+``content``, ``text``, ``iter_lines()``, ``raise_for_status()``).
 
 No third-party package is imported at module level: pandas only in the
 methods that build or read a DataFrame (``get_job_results`` and what
@@ -14,18 +18,26 @@ list, a ``dataset-<id>`` or a URL in, ``stay_attached=False`` and
 cache holds the same columns as the JAX package's parquet cache, as
 JSON (``$SUTRO_HOME/job-results/<job_id>.json``).
 
-Not ported yet (ROADMAP.md §1, "Serving and fleet"): ``chat``,
-``run_graph``, ``get_monitor`` and ``get_job_fleet`` (they raise), the
-fleet getters and the remote backend.
+``chat`` sends one OpenAI chat request to the interactive tier: the
+engine's gateway locally (``engine_config={"interactive_slots": N}``),
+``POST /v1/chat/completions`` remotely.
+
+Not ported yet (ROADMAP.md §1, "Serving and fleet"): ``run_graph``, and
+locally ``get_monitor`` and ``get_job_fleet`` (they raise), and the
+fleet router's getters.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import sys
 import time
+import urllib.error
+import urllib.request
+import uuid
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
@@ -60,19 +72,104 @@ JOB_URL_TEMPLATE = "https://app.sutro.sh/jobs/{job_id}"
 
 
 def _check_backend(backend: str) -> str:
-    if backend in ("remote", "fleet"):
-        raise NotImplementedError(
-            f"backend={backend!r}: the HTTP transport is not ported yet "
-            "(ROADMAP.md §1, 'Datasets, URL inputs and the rest of the "
-            "façade'); use the default in-process backend"
-        )
-    if backend != "tpu":
+    """``"fleet"`` targets a fleet router, whose wire contract is a single
+    server's, so it is the remote transport."""
+    if backend not in ("tpu", "remote", "fleet"):
         raise ValueError("backend must be 'tpu', 'remote', or 'fleet'")
-    return backend
+    return "remote" if backend == "fleet" else backend
+
+
+class HTTPError(OSError):
+    """A non-2xx answer, raised by ``Response.raise_for_status``; the
+    response is ``.response``."""
+
+    def __init__(self, msg: str, response: "Response"):
+        super().__init__(msg)
+        self.response = response
+
+
+class Response:
+    """The remote backend's answer to one request: the status and the
+    body, read whole or (``stream=True``) line by line off the open
+    connection."""
+
+    def __init__(self, url: str, status_code: int, raw: Any, stream: bool):
+        self.url = url
+        self.status_code = int(status_code)
+        self.headers = raw.headers
+        self._raw = raw
+        self._content: Optional[bytes] = None
+        if not stream:
+            self._read_all()
+
+    def _read_all(self) -> bytes:
+        if self._content is None:
+            try:
+                self._content = self._raw.read()
+            finally:
+                self._raw.close()
+        return self._content
+
+    @property
+    def content(self) -> bytes:
+        return self._read_all()
+
+    @property
+    def text(self) -> str:
+        return self.content.decode("utf-8", "replace")
+
+    def json(self) -> Any:
+        return json.loads(self.content)
+
+    def iter_lines(self):
+        """The body's lines, without their line ends, as they arrive."""
+        if self._content is not None:
+            yield from self._content.splitlines()
+            return
+        try:
+            for line in self._raw:
+                yield line.rstrip(b"\r\n")
+        finally:
+            self._raw.close()
+
+    def close(self) -> None:
+        self._raw.close()
+
+    def raise_for_status(self) -> None:
+        if self.status_code >= 400:
+            try:
+                detail = self.text[:500]
+            except OSError:
+                detail = ""
+            raise HTTPError(
+                f"{self.status_code} error for {self.url}: {detail}", self
+            )
+
+
+def _multipart(fields: Dict[str, str], files: Dict[str, Any]) -> tuple:
+    """A ``multipart/form-data`` body: (bytes, content type). ``files``
+    maps a field to an open binary file."""
+    boundary = uuid.uuid4().hex
+    out = []
+    for name, value in fields.items():
+        out.append(
+            f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"'
+            f"\r\n\r\n{value}\r\n".encode()
+        )
+    for name, f in files.items():
+        fname = os.path.basename(getattr(f, "name", name))
+        out.append(
+            f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"; '
+            f'filename="{fname}"\r\nContent-Type: application/octet-stream'
+            "\r\n\r\n".encode() + f.read() + b"\r\n"
+        )
+    out.append(f"--{boundary}--\r\n".encode())
+    return b"".join(out), f"multipart/form-data; boundary={boundary}"
 
 
 class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
-    """Batch LLM inference client over the in-process CUDA engine."""
+    """Batch LLM inference client over the in-process CUDA engine, or
+    over HTTP to a server (``backend="remote"``)."""
 
     def __init__(
         self,
@@ -107,7 +204,7 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         self.backend = _check_backend(backend)
 
     # ------------------------------------------------------------------
-    # transport
+    # transports
     # ------------------------------------------------------------------
 
     @property
@@ -124,6 +221,64 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
                 load_engine_config(**self._engine_config)
             )
         return self._engine
+
+    def do_request(
+        self,
+        method: str,
+        endpoint: str,
+        base_url: Optional[str] = None,
+        **kwargs: Any,
+    ) -> Response:
+        """Authenticated HTTP dispatch for the remote backend, over
+        ``urllib``. Takes ``json=``, ``data=`` (form fields, or raw
+        bytes), ``files=`` (multipart), ``headers=``, ``stream=`` and
+        ``timeout=``. Retries HTTP 524 with exponential backoff, at most
+        5 tries, and connection failures on idempotent reads (GET/HEAD)
+        with a bounded backoff, so a server restart under a polling
+        client resumes instead of raising. Other verbs never replay: a
+        connection error on a submit is raised, not retried into a
+        duplicate job."""
+        url = f"{(base_url or self.base_url).rstrip('/')}/{endpoint.lstrip('/')}"
+        headers = dict(kwargs.pop("headers", None) or {})
+        if self.api_key:
+            headers.setdefault("Authorization", f"Key {self.api_key}")
+        stream = bool(kwargs.pop("stream", False))
+        timeout = kwargs.pop("timeout", None)
+        doc, files, data = (kwargs.pop(k, None) for k in ("json", "files", "data"))
+        if kwargs:
+            raise TypeError(f"do_request: unsupported arguments {sorted(kwargs)}")
+        body: Optional[bytes] = None
+        if doc is not None:
+            body = json.dumps(doc).encode()
+            headers["Content-Type"] = "application/json"
+        elif files:
+            body, headers["Content-Type"] = _multipart(data or {}, files)
+        elif data is not None:
+            body = bytes(data)
+        method = method.upper()
+        idempotent = method in ("GET", "HEAD")
+        for attempt in range(5):
+            req = urllib.request.Request(url, data=body, headers=headers, method=method)
+            try:
+                raw = urllib.request.urlopen(req, timeout=timeout)
+                resp = Response(url, raw.status, raw, stream)
+            except urllib.error.HTTPError as e:
+                resp = Response(url, e.code, e, stream)
+            except OSError:
+                if not idempotent or attempt == 4:
+                    raise
+                time.sleep(min(0.2 * (2 ** attempt), 2.0))
+                continue
+            if resp.status_code != 524:
+                return resp
+            resp.close()
+            time.sleep(2 ** attempt)
+        return resp
+
+    def _remote_json(self, method: str, endpoint: str, **kw: Any) -> Any:
+        resp = self.do_request(method, endpoint, **kw)
+        resp.raise_for_status()
+        return resp.json()
 
     # ------------------------------------------------------------------
     # core submit path
@@ -171,7 +326,24 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
             "sampling_params": sampling_params,
             "tenant": tenant,
         }
-        job_id = self.engine.submit_batch_inference(payload)
+        if self.backend == "remote":
+            resp = self.do_request("post", "batch-inference", json=payload)
+            if resp.status_code == 400:
+                # the server's structured INVALID_PRIORITY body maps back
+                # to the typed error the local backend raises
+                try:
+                    err = resp.json().get("error") or {}
+                except ValueError:
+                    err = {}
+                if err.get("code") == "INVALID_PRIORITY":
+                    from .engine.jobstore import InvalidPriority
+
+                    hi = (err.get("valid_range") or [0, 0])[1]
+                    raise InvalidPriority(err.get("priority"), hi + 1)
+            resp.raise_for_status()
+            job_id = resp.json()["results"]
+        else:
+            job_id = self.engine.submit_batch_inference(payload)
 
         if dry_run:
             with Spinner("Estimating cost...") as sp:
@@ -246,7 +418,176 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
             pbar.close()
 
     def _iter_progress(self, job_id: str):
-        yield from self.engine.stream_job_progress(job_id)
+        if self.backend == "remote":
+            yield from self._iter_progress_remote(job_id)
+        else:
+            yield from self.engine.stream_job_progress(job_id)
+
+    def _iter_progress_remote(self, job_id: str):
+        """Remote progress tail with reconnect-by-cursor: a stream that
+        closes WITHOUT the terminal ``{"t": "end"}`` record means the
+        server died mid-stream — reconnect with ``?cursor=<rows done>``
+        so the resumed stream carries on where the last one dropped.
+        The progress bar's monotone merge makes any overlap harmless."""
+        from http.client import HTTPException
+
+        cursor = 0
+        retries = 0
+        while True:
+            try:
+                resp = self.do_request(
+                    "get", f"stream-job-progress/{job_id}?cursor={cursor}",
+                    stream=True,
+                )
+                resp.raise_for_status()
+                for line in resp.iter_lines():
+                    if not line:
+                        continue
+                    update = json.loads(line)
+                    if update.get("t") == "end":
+                        return
+                    if update.get("update_type") == "progress":
+                        try:
+                            cursor = max(cursor, int(update.get("result") or 0))
+                        except (TypeError, ValueError):
+                            pass
+                    retries = 0
+                    yield update
+                # closed with no end record: a server that finished
+                # without one, or a death mid-stream — disambiguate below
+            except HTTPError:
+                raise
+            except (OSError, HTTPException):
+                pass
+            retries += 1
+            try:
+                status = self.get_job_status(job_id)
+            except (OSError, HTTPException, ValueError):
+                status = None  # server still restarting
+            if status is not None and JobStatus(status).is_terminal():
+                return
+            if retries > 6:
+                raise RuntimeError(
+                    f"progress stream for {job_id} lost after "
+                    f"{retries} reconnect attempts"
+                )
+            time.sleep(min(0.2 * (2 ** retries), 2.0))
+
+    # ------------------------------------------------------------------
+    # interactive serving API (the serving/ tier's OpenAI surface)
+    # ------------------------------------------------------------------
+
+    def chat(
+        self,
+        messages: Union[str, List[Dict[str, Any]]],
+        model: str = "qwen-3-4b",
+        *,
+        stream: bool = False,
+        system_prompt: Optional[str] = None,
+        response_format: Optional[Dict[str, Any]] = None,
+        max_tokens: Optional[int] = None,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+        stop: Optional[Union[str, List[str]]] = None,
+        seed: Optional[int] = None,
+        session_id: Optional[str] = None,
+    ) -> Any:
+        """One interactive chat completion against the serving tier.
+
+        ``messages`` is a string (one user turn) or an OpenAI-style
+        message list. Non-streaming returns the ``chat.completion``
+        response dict; ``stream=True`` returns an iterator of
+        ``chat.completion.chunk`` dicts (closing it cancels the request
+        and frees its engine slot). ``response_format`` takes the OpenAI
+        ``json_object`` / ``json_schema`` shapes and routes through the
+        engine's constrained decoding. ``session_id`` makes the
+        conversation sticky: the server keeps the token transcript (and
+        its KV, tiered device -> host -> disk), so each later call with
+        the same id sends only the new user turn.
+
+        Remote backends POST ``/v1/chat/completions`` to ``base_url``;
+        the local backend submits straight to the engine's gateway,
+        which needs ``engine_config={"interactive_slots": N}``, N > 0."""
+        if isinstance(messages, str):
+            messages = [{"role": "user", "content": messages}]
+        else:
+            messages = list(messages)
+        if system_prompt:
+            messages = [{"role": "system", "content": system_prompt}] + messages
+        body: Dict[str, Any] = {
+            "model": model,
+            "messages": messages,
+            "stream": bool(stream),
+        }
+        if response_format is not None:
+            body["response_format"] = response_format
+        if max_tokens is not None:
+            body["max_tokens"] = int(max_tokens)
+        if temperature is not None:
+            body["temperature"] = float(temperature)
+        if top_p is not None:
+            body["top_p"] = float(top_p)
+        if stop is not None:
+            body["stop"] = stop
+        if seed is not None:
+            body["seed"] = int(seed)
+        if session_id is not None:
+            body["session_id"] = str(session_id)
+
+        if self.backend == "remote":
+            resp = self.do_request(
+                "post", "v1/chat/completions", json=body, stream=stream
+            )
+            if resp.status_code == 404:
+                raise RuntimeError(
+                    "the server's interactive tier is disabled — start "
+                    "it with EngineConfig.interactive_slots > 0"
+                )
+            resp.raise_for_status()
+            if stream:
+                return self._iter_sse(resp)
+            return resp.json()
+
+        gw = getattr(self.engine, "gateway", None)
+        if gw is None:
+            raise RuntimeError(
+                "interactive serving is disabled: construct "
+                "Sutro(engine_config={'interactive_slots': N}) with N > 0"
+            )
+        from .serving import openai as oai
+
+        ir = gw.submit(oai.parse_request(body, chat=True))
+        if stream:
+            return self._iter_local_stream(ir)
+        return oai.collect(ir, chat=True)
+
+    def _iter_local_stream(self, ir: Any):
+        """Local streaming chat: the gateway's channel, heartbeats
+        filtered out. An abandoned iterator cancels the request so the
+        scheduler frees its slot."""
+        from .serving import openai as oai
+
+        try:
+            for obj in oai.iter_stream(ir, chat=True):
+                if obj is not None:
+                    yield obj
+        except GeneratorExit:
+            ir.channel.cancel()
+            raise
+
+    def _iter_sse(self, resp: Response):
+        """Parse an SSE chat stream (``data:`` frames until [DONE])."""
+        try:
+            for raw in resp.iter_lines():
+                line = raw.decode()
+                if not line.startswith("data:"):
+                    continue  # ": ping" heartbeats, blank separators
+                data = line[5:].strip()
+                if data == "[DONE]":
+                    return
+                yield json.loads(data)
+        finally:
+            resp.close()
 
     # ------------------------------------------------------------------
     # public inference API
@@ -353,13 +694,20 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         input_data: Any,
         **kwargs: Any,
     ) -> Dict[str, Any]:
-        """Single online call: a 1-row synchronous job against the model
-        the function name resolves to. ``input_data`` is a dict, a
-        string or a pydantic model (dumped to a dict)."""
+        """Single online call. The remote backend POSTs
+        ``{serving_base_url}/functions/run``; the local one runs a 1-row
+        synchronous job against the model the function name resolves
+        to. ``input_data`` is a dict, a string or a pydantic model
+        (dumped to a dict)."""
         if hasattr(input_data, "model_dump"):
             input_data = input_data.model_dump()
 
         def _call() -> Dict[str, Any]:
+            if self.backend == "remote":
+                return self._remote_json(
+                    "post", "functions/run", base_url=self.serving_base_url,
+                    json={"name": name, "input_data": input_data},
+                )
             text = (
                 json.dumps(input_data)
                 if isinstance(input_data, dict)
@@ -437,6 +785,8 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
     # ------------------------------------------------------------------
 
     def _fetch_job(self, job_id: str) -> Dict[str, Any]:
+        if self.backend == "remote":
+            return self._remote_json("get", f"jobs/{job_id}")["job"]
         return self.engine.get_job(job_id)
 
     def _get_job_cost_estimate(self, job_id: str) -> Optional[float]:
@@ -451,7 +801,10 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
     ) -> Any:
         """Job status string; with ``with_failure_log`` a dict
         ``{"status", "failure_log", "has_telemetry_dump"}``."""
-        status = self.engine.job_status(job_id)
+        if self.backend == "remote":
+            status = self._remote_json("get", f"job-status/{job_id}")["job_status"][job_id]
+        else:
+            status = self.engine.job_status(job_id)
         if with_failure_log:
             rec = self._fetch_job(job_id)
             return {
@@ -473,6 +826,8 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         finalize, ...) plus exact per-job counters (rows by outcome,
         tokens in/out). Dumped automatically when a job FAILs; this
         fetches and refreshes it on demand."""
+        if self.backend == "remote":
+            return self._remote_json("get", f"job-telemetry/{job_id}")["telemetry"]
         return self.engine.job_telemetry(job_id)
 
     def diagnose_job(self, job_id: str) -> Dict[str, Any]:
@@ -480,19 +835,32 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         job's telemetry document, roofline grades for its device
         windows, and one named bottleneck verdict with evidence
         lines."""
+        if self.backend == "remote":
+            return self._remote_json("get", f"job-doctor/{job_id}")["doctor"]
         return self.engine.diagnose_job(job_id)
 
     def get_trace(self, ident: str) -> Dict[str, Any]:
         """Chrome trace-event JSON (Perfetto-loadable) for a forensics
         trace id (``tr-...``), a job id whose trace is still in the
         ring, or a plain job id (whole flight record). Raises
-        ``KeyError`` when unknown."""
+        ``KeyError`` locally and a 404 remotely when unknown."""
+        if self.backend == "remote":
+            return self._remote_json("get", f"trace/{ident}")
         return self.engine.get_trace(ident)
 
     def get_job_fleet(self, job_id: str) -> Dict[str, Any]:
+        """Data-parallel fleet view of a job (``GET /job-fleet/{id}``
+        remotely; the CUDA engine's raises: data-parallel engines are
+        not ported)."""
+        if self.backend == "remote":
+            return self._remote_json("get", f"job-fleet/{job_id}")["fleet"]
         return self.engine.job_fleet(job_id)
 
     def get_monitor(self) -> Dict[str, Any]:
+        """The live SLO monitor's document (``GET /monitor``) of a
+        remote server that has one; the CUDA engine's is not ported."""
+        if self.backend == "remote":
+            return self._remote_json("get", "monitor")["monitor"]
         raise NotImplementedError(
             "the live SLO monitor is not ported to the CUDA engine yet "
             "(ROADMAP.md §1, 'Serving and fleet')"
@@ -500,20 +868,31 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
 
     def get_metrics_text(self) -> str:
         """Engine metrics registry in Prometheus text exposition
-        format."""
+        format (the payload ``GET /metrics`` serves)."""
+        if self.backend == "remote":
+            resp = self.do_request("get", "metrics")
+            resp.raise_for_status()
+            return resp.text
         from . import telemetry
 
         return telemetry.REGISTRY.to_prometheus()
 
     def list_jobs(self) -> List[Dict[str, Any]]:
+        if self.backend == "remote":
+            return self._remote_json("get", "list-jobs")["jobs"]
         return self.engine.list_jobs()
 
     def cancel_job(self, job_id: str) -> Dict[str, Any]:
+        if self.backend == "remote":
+            # the wire contract's GET for a mutation
+            return self._remote_json("get", f"job-cancel/{job_id}")
         return self.engine.cancel_job(job_id)
 
     def resume_job(self, job_id: str) -> Dict[str, Any]:
         """Re-queue a FAILED/CANCELLED (or orphaned) job; rows already in
         the partial store are not recomputed."""
+        if self.backend == "remote":
+            return self._remote_json("get", f"job-resume/{job_id}")
         return self.engine.resume_job(job_id)
 
     def _await_job_start(self, job_id: str, timeout: int = 3600) -> bool:
@@ -543,12 +922,15 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         return False
 
     def _poll_s(self) -> float:
-        """Status-poll interval: the local backend is a direct call, so
-        it polls fast."""
+        """Initial status-poll interval: fast on both backends (a tiny
+        job finishes in well under a second); the remote one backs off
+        geometrically to 5 s."""
         return 0.1
 
     def _poll_next(self, poll: float) -> float:
-        return poll
+        if self.backend == "tpu":
+            return poll
+        return min(5.0, poll * 1.6)
 
     def _wait_terminal(self, job_id: str, timeout: int) -> str:
         poll = self._poll_s()
@@ -638,11 +1020,21 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
                 df = cached.rename(columns={"outputs": output_column})
 
         if df is None:
-            results = self.engine.job_results(
-                job_id,
-                include_inputs=include_inputs,
-                include_cumulative_logprobs=include_cumulative_logprobs,
-            )
+            if self.backend == "remote":
+                results = self._remote_json(
+                    "post", "job-results",
+                    json={
+                        "job_id": job_id,
+                        "include_inputs": include_inputs,
+                        "include_cumulative_logprobs": include_cumulative_logprobs,
+                    },
+                )["results"]
+            else:
+                results = self.engine.job_results(
+                    job_id,
+                    include_inputs=include_inputs,
+                    include_cumulative_logprobs=include_cumulative_logprobs,
+                )
             cols: Dict[str, Any] = {}
             if include_inputs and "inputs" in results:
                 cols["inputs"] = results["inputs"]
@@ -738,6 +1130,8 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
     # ------------------------------------------------------------------
 
     def create_dataset(self) -> str:
+        if self.backend == "remote":
+            return self._remote_json("get", "create-dataset")["dataset_id"]
         return self.engine.datasets.create()
 
     def upload_to_dataset(
@@ -748,6 +1142,16 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
     ) -> List[str]:
         if isinstance(file_paths, str):
             file_paths = [file_paths]
+        if self.backend == "remote":
+            uploaded = []
+            for path in file_paths:
+                with open(path, "rb") as f:
+                    self._remote_json(
+                        "post", "upload-to-dataset", files={"file": f},
+                        data={"dataset_id": dataset_id},
+                    )
+                uploaded.append(os.path.basename(path))
+            return uploaded
         names = self.engine.datasets.upload(dataset_id, file_paths)
         if verbose:
             print(
@@ -759,9 +1163,15 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         return names
 
     def list_datasets(self) -> List[Dict[str, Any]]:
+        if self.backend == "remote":
+            return self._remote_json("post", "list-datasets")["datasets"]
         return self.engine.datasets.list_datasets()
 
     def list_dataset_files(self, dataset_id: str) -> List[str]:
+        if self.backend == "remote":
+            return self._remote_json(
+                "post", "list-dataset-files", json={"dataset_id": dataset_id}
+            )["files"]
         return self.engine.datasets.list_files(dataset_id)
 
     def download_from_dataset(
@@ -775,10 +1185,23 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         if isinstance(file_names, str):
             file_names = [file_names]
         out_dir = output_path or "."
-        return [
-            str(self.engine.datasets.download(dataset_id, fname, out_dir))
-            for fname in file_names
-        ]
+        if self.backend != "remote":
+            return [
+                str(self.engine.datasets.download(dataset_id, fname, out_dir))
+                for fname in file_names
+            ]
+        written = []
+        for fname in file_names:
+            resp = self.do_request(
+                "post", "download-from-dataset",
+                json={"dataset_id": dataset_id, "file_name": fname},
+            )
+            resp.raise_for_status()
+            dst = Path(out_dir) / fname
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            dst.write_bytes(resp.content)
+            written.append(str(dst))
+        return written
 
     # ------------------------------------------------------------------
     # auth / quotas / cache
@@ -787,9 +1210,16 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
     def try_authentication(
         self, api_key: Optional[str] = None
     ) -> Dict[str, Any]:
+        if self.backend == "remote":
+            return self._remote_json(
+                "get", "try-authentication",
+                headers={"Authorization": f"Key {api_key or self.api_key}"},
+            )
         return self.engine.try_authentication()
 
     def get_quotas(self) -> List[Dict[str, int]]:
+        if self.backend == "remote":
+            return self._remote_json("get", "get-quotas")["quotas"]
         return self.engine.get_quotas()
 
     def clear_job_results_cache(self) -> int:

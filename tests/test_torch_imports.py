@@ -6,10 +6,13 @@
 - ``chip_smoke.main()`` exits non-zero and prints no result without a
   CUDA device;
 - the same holds with the packages the card's machine lacks (pandas,
-  pyarrow, pydantic, tqdm, colorama, requests, polars, safetensors)
-  blocked too, and there a one-row job runs through ``so.infer`` and
-  the engine's ``job_results``, an embedding job gives its vectors,
-  and a job reads its rows from a CSV dataset.
+  pyarrow, pydantic, tqdm, colorama, requests, polars, safetensors,
+  click) blocked too, and there a one-row job runs through ``so.infer``
+  and the engine's ``job_results``, an embedding job gives its vectors,
+  and a job reads its rows from a CSV dataset;
+- with the same packages blocked, the server (``server.py``) answers a
+  remote-backend ``Sutro`` job and a chat request, ``so.chat`` runs on
+  the local gateway, and the KV tier demotes and promotes.
 """
 
 import ast
@@ -28,7 +31,7 @@ FORBIDDEN = ("jax", "jaxlib", "sutro_tpu")
 # not installed on the card's machine: the port reaches them only inside
 # the functions that need them
 ABSENT_ON_CARD = ("pandas", "pyarrow", "pydantic", "tqdm", "colorama", "requests",
-                  "polars", "safetensors")
+                  "polars", "safetensors", "click")
 # the kernel modules and the modules around them, imported by name
 MODULES = (
     "sutro_tpu_torch.ops.cuda_build",
@@ -66,6 +69,13 @@ MODULES = (
     "sutro_tpu_torch.observability",
     "sutro_tpu_torch.templates.embed",
     "sutro_tpu_torch.templates.evals",
+    "sutro_tpu_torch.engine.prefixstore",
+    "sutro_tpu_torch.engine.kvtier",
+    "sutro_tpu_torch.serving.openai",
+    "sutro_tpu_torch.serving.channel",
+    "sutro_tpu_torch.serving.gateway",
+    "sutro_tpu_torch.fleet.frames",
+    "sutro_tpu_torch.server",
 )
 
 
@@ -139,6 +149,50 @@ def test_port_imports_and_runs_a_job_without_the_card_machines_missing_packages(
     assert out.returncode == 0, out.stderr
     assert "JOB_OK SUCCEEDED" in out.stdout
     assert (tmp_path / "home" / "jobs").is_dir()
+
+
+def test_serving_and_the_remote_sdk_run_without_the_card_machines_missing_packages(tmp_path):
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN + ABSENT_ON_CARD!r}:\n"
+        "    sys.modules[m] = None\n"
+        "from sutro_tpu_torch.engine.api import get_engine\n"
+        "from sutro_tpu_torch.engine.config import EngineConfig\n"
+        "from sutro_tpu_torch.server import _graceful_shutdown, start_server_thread\n"
+        "from sutro_tpu_torch.sdk import Sutro\n"
+        "eng = get_engine(EngineConfig(kv_page_size=8, max_pages_per_seq=8,\n"
+        "    decode_batch_size=2, max_model_len=64, param_dtype='float32',\n"
+        "    interactive_slots=1, kv_tiers=True), device='cpu')\n"
+        "srv, thread, url = start_server_thread(eng)\n"
+        "c = Sutro(backend='remote', base_url=url)\n"
+        "jid = c.infer(['one row'], model='tiny-dense', stay_attached=False,\n"
+        "    sampling_params={'temperature': 0.0, 'max_new_tokens': 3})\n"
+        "ups = [u for u in c._iter_progress(jid) if u['update_type'] == 'progress']\n"
+        "assert c.get_job_status(jid) == 'SUCCEEDED' and ups[-1]['result'] == 1, ups\n"
+        "out = c.chat('hello', model='tiny-dense', max_tokens=3, temperature=0.0)\n"
+        "assert out['object'] == 'chat.completion', out\n"
+        "import sutro_tpu_torch as so\n"
+        "chunks = list(so.chat('hi', model='tiny-dense', stream=True, max_tokens=3,\n"
+        "    session_id='s', system_prompt='You are a bot with a system prompt.'))\n"
+        "assert chunks[-1]['choices'][0]['finish_reason'], chunks\n"
+        "assert eng.gateway.checkpoint_idle(0.0) == 1\n"
+        "so.chat('again', model='tiny-dense', max_tokens=3, session_id='s')\n"
+        "tier = eng._kv_tiers['tiny-dense']\n"
+        "assert tier.drain(10) and tier.op_census()['promotes'] >= 1, tier.op_census()\n"
+        "_graceful_shutdown(eng, srv, 10)\n"
+        "thread.join(30)\n"
+        "assert eng.close() and not thread.is_alive()\n"
+        "for m in " + repr(ABSENT_ON_CARD) + ":\n"
+        "    assert sys.modules[m] is None, m\n"
+        "print('SERVE_OK')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "SUTRO_HOME": str(tmp_path / "home")}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "SERVE_OK" in out.stdout
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -9,8 +9,8 @@ JAX template's (pydantic's ``model_json_schema()``) for list and dict
 classes; ``infer`` on a DataFrame with ``column`` (one name, or names
 and separators) and ``with_original_df``; the results cache round
 trip; the job-lifecycle methods; the helpers of ``common``; and the
-refusal of what is not ported (the remote backend, stage graphs, the
-serving options, the fleet getters and the live monitor).
+refusal of what is not ported (stage graphs, the control plane,
+data-parallel engines, the fleet view and the live monitor).
 """
 
 import json
@@ -191,22 +191,38 @@ def test_common_helpers_match():
         common.normalize_output_schema(42)
 
 
-def test_what_is_not_ported_is_refused(clients):
+def test_what_is_not_ported_is_refused(clients, monkeypatch):
+    """Stage graphs, the control plane, data-parallel engines, the live
+    monitor and the fleet view raise; the remote backend and the
+    serving tier (ported since) do not."""
     _, c = clients
     for backend in ("remote", "fleet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Sutro(backend=backend)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            c.set_backend(backend)
+        assert Sutro(backend=backend).backend == "remote"
+    with pytest.raises(ValueError):
+        Sutro(backend="tcp")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         so.run_graph(TEXTS, stages=[])
-    for ecfg in (EngineConfig(interactive_slots=1), EngineConfig(control="rows=2")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.LocalEngine(ecfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        c.engine.submit_batch_inference({"model": "tiny-dense", "inputs": TEXTS,
+                                         "stages": [{"name": "a"}]})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.LocalEngine(EngineConfig(control="rows=2"), device="cpu")
+    monkeypatch.setenv("SUTRO_DP_WORLD", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.LocalEngine(EngineConfig(), device="cpu")
+    monkeypatch.delenv("SUTRO_DP_WORLD")
     for call in (lambda: c.engine.job_fleet("job-x"), lambda: c.get_job_fleet("job-x"),
-                 c.engine.fleet_state, c.get_monitor):
+                 c.get_monitor):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    with pytest.raises(KeyError, match="disabled"):
+        c.engine.monitor_doc()
+    eng = api.LocalEngine(EngineConfig(interactive_slots=1), device="cpu")
+    try:
+        assert eng.gateway is not None
+        assert eng.fleet_state()["load"]["interactive_slots"] == 1
+    finally:
+        assert eng.close(timeout=30)
 
 
 def test_smoke_classify_prompt_shares_whole_pages():
@@ -223,3 +239,26 @@ def test_smoke_classify_prompt_shares_whole_pages():
     assert len(chip_smoke.shared_head([a[:129], a], 64)) == 128
     assert len(chip_smoke.shared_head([a[:128], a], 64)) == 64
     assert len(chip_smoke.shared_head([a, [9] + a[1:]], 64)) == 0
+
+
+def test_smoke_online_prompt_shares_whole_pages():
+    """``chip_smoke.py``'s kernel phase holds the carry kernels at serve
+    7's shape: the pages that job B's rows (Qwen3's chat frame around
+    the system prompt S, byte tokenizer, 16-500 characters each) share
+    on qwen3-8b. ``online_prefix_pages`` must count what those rows
+    share, as serve 7 finds it before its split-decode check."""
+    import numpy as np
+
+    import chip_smoke
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer, encode_chat_batch
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    mcfg = MODEL_CONFIGS["qwen3-8b"]
+    rng = np.random.default_rng(7)
+    system = chip_smoke.online_system_prompt(rng, 1000)
+    rows = ["".join(rng.choice(chip_smoke.ALPHABET, int(n)))
+            for n in rng.integers(16, 501, 32)]
+    prompts = encode_chat_batch(ByteTokenizer(vocab_size=mcfg.vocab_size), rows, system,
+                                mcfg.chat_template)
+    assert chip_smoke.online_prefix_pages() == 15
+    assert len(chip_smoke.shared_head(prompts, 64)) == 15 * 64
