@@ -42,7 +42,12 @@ Phases, in order; any failure raises and exits non-zero:
    counts, and flash prefill also at NH=64 (8 x 500), at T=2,048
    (4 rows, NH=32 over KVH=4) and at serve 6's embedding batch (64 rows
    x 512, NH=16 over KVH=8, also beside its plain version), each beside
-   its bound and SDPA;
+   its bound and SDPA; and at gpt-oss-20b's shapes (``kernel_gpt_oss``:
+   NH=64 over KVH=8, Dh=64; E=32 at H=F=2,880) flash prefill 8 x 500
+   and the paged decode with the sink and the 128-token window and
+   without, the carry over 16 shared pages and the decode from it, and
+   the grouped GEMM at M = 256 and 16,000, each beside its bound and
+   library call;
 4. serve 1: ``ContinuousBatcher.run`` over a ``ModelRunner`` for
    ``qwen3-8b`` at full width and depth with random weights from a
    seed: 96 requests, greedy, top-p and row-seeded rows. Every row must
@@ -109,12 +114,27 @@ Phases, in order; any failure raises and exits non-zero:
    bound of the prefill checks), and a decode step of two sets of 8 of
    B's rows must give the same layer-0 attention and logits with and
    without S's pages as prefix groups (one group, then two in one
-   step). It prints client and server TTFT and ITL percentiles, B's
+   step); during the burst ``GET /monitor`` must answer with the
+   interactive TTFT and ITL p99 and the stock TTFT rule's state, and
+   ``GET /monitor/stream?ticks=2`` with two NDJSON ticks. It prints
+   client and server TTFT and ITL percentiles, B's
    decode tok/s before and during the burst, the rows suspended for
    interactive requests, the store's hits and tokens saved and the
    tier's operations, bytes and host time, and a ``serve7 summary``
    line after the ``kernels`` line;
-7. serve 6, after serve 7's engine is closed: embedding jobs through
+7. serve 8, after serve 7's engine is closed: stage graphs, the control
+   plane and the live monitor on gpt-oss-20b (24 layers, H=2,880, 64/8
+   heads of 64, sinks, a 128-token window on every other layer, 32
+   experts top-4; random weights from the seed, 41.8 GB) through
+   ``import sutro_tpu_torch as so`` (``serve_graphs``: a dry run and a
+   six-stage ``so.run_graph`` job, a priority-0 job preempting a
+   priority-1 job's rows through the ladder, an over-bucket submit
+   refused, an SLO rule set through ``monitor.set_rules`` firing and
+   resolving), every kernel but the int8 option launching; then prefill
+   logits and a split decode (layers 0 and 1) against their plain
+   versions, a MoE forward replaying the kernel run's expert choices
+   (``routing``). A ``serve8 summary`` line follows serve 7's;
+8. serve 6, after serve 8's engine is closed: embedding jobs through
    the façade on ``qwen-3-embedding-0.6b`` (28 layers, H=1024, 16/8
    heads; random weights from the seed) at serve 1's geometry (batches
    of 64 rows). Job E1: 4,096 rows of 16-1,024 tokens written as two
@@ -133,7 +153,7 @@ Phases, in order; any failure raises and exits non-zero:
    against the H100 row and ``so.get_trace(E1)`` give trace events. It
    prints each job's rows/s and input tok/s, the jobstore's flush and
    finalize ms and the bytes of JSON written;
-8. serve 2, after serve 6's runner is freed: a templated batch job on
+9. serve 2, after serve 6's runner is freed: a templated batch job on
    ``qwen3-30b-a3b`` (MoE, 128 experts) at full width and depth with
    ``prefix_split=True``: 96 requests sharing a 1,024-token template.
    Every row must finish, the grouped GEMM, the prefix carry, the
@@ -141,13 +161,14 @@ Phases, in order; any failure raises and exits non-zero:
    launched during this run,
    both decode paths must have run with prefix groups, prefill logits
    of three sets of 4 rows must match a cache-free forward through the
-   plain attention and the plain grouped GEMM, a decode step of two
-   sets of 8 rows over the shared pages must give the same layer-0
-   attention output (atol = rtol of the kernel phase) and the same
-   logits with and without the prefix groups, and a fused window with
+   plain attention and the plain grouped GEMM (on the kernel run's
+   expert choices, ``routing``), a decode step of two sets of 8 rows
+   over the shared pages must give the same layer-0 attention output
+   (atol = rtol of the kernel phase) and the same logits with and
+   without the prefix groups, and a fused window with
    the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
-9. serve 4, on serve 2's runner after serve 2's job (the model is not
+10. serve 4, on serve 2's runner after serve 2's job (the model is not
    loaded again): a schema-constrained templated job of 96 rows, one
    shared 1,024-token template with the classify system prompt at its
    head and a 16-256-token suffix each, at most 128 new tokens: 64
@@ -163,7 +184,7 @@ Phases, in order; any failure raises and exits non-zero:
    forward's logits at each row's first position must match the
    decode forward's (two sets of 8 rows). It prints the mask core
    (native or Python) and the host time spent on masks;
-10. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+11. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
    16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
    past). Every row must finish, the int8 paged decode and flash
@@ -181,7 +202,8 @@ the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing of JAX or of the JAX package
 is imported. Exits with 2 and prints no result when no CUDA device is
 available. ``python3 chip_smoke.py --kernels-only`` stops after phase 3
-(and prints neither record). ``python3 chip_smoke.py --pair-timing
+(and prints neither record); ``--serve8-only`` runs serve 8 after it
+and prints serve 8's summary, not the records. ``python3 chip_smoke.py --pair-timing
 [--package DIR]`` only times the prefix carry and the grouped GEMM
 through their wrappers and prints one JSON line; with ``--package`` the
 ``sutro_tpu_torch`` under DIR (a parent commit's ``git archive``) is
@@ -401,9 +423,9 @@ KD = KVH * DH
 L = 36                       # qwen3-8b depth (page-write shapes)
 
 
-def _decode_inputs(rng, torch, dev, nh=NH, mp=MP, past_range=(1, 2001), ragged=True):
-    """``nh`` query heads over KVH=8 KV heads, ``mp`` pages per row.
-    Ragged rows: past in ``past_range``, some past=0 rows, page-0
+def _decode_inputs(rng, torch, dev, nh=NH, mp=MP, past_range=(1, 2001), ragged=True, dh=DH):
+    """``nh`` query heads over KVH=8 KV heads of ``dh``, ``mp`` pages per
+    row. Ragged rows: past in ``past_range``, some past=0 rows, page-0
     padding rows; with ``ragged`` false every row is in ``past_range``."""
     past = rng.integers(*past_range, B)
     if ragged:
@@ -421,60 +443,76 @@ def _decode_inputs(rng, torch, dev, nh=NH, mp=MP, past_range=(1, 2001), ragged=T
         nxt += n
     bf = dict(dtype=torch.bfloat16, device=dev)
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    kd = KVH * dh
     return dict(
-        q=torch.randn((B, nh, DH), generator=g, **bf),
-        k_pages=torch.randn((n_pool, PS, KD), generator=g, **bf),
-        v_pages=torch.randn((n_pool, PS, KD), generator=g, **bf),
+        q=torch.randn((B, nh, dh), generator=g, **bf),
+        k_pages=torch.randn((n_pool, PS, kd), generator=g, **bf),
+        v_pages=torch.randn((n_pool, PS, kd), generator=g, **bf),
         page_table=torch.as_tensor(table, device=dev),
         past_len=torch.as_tensor(past.astype(np.int32), device=dev),
-        k_cur=torch.randn((B, KVH, DH), generator=g, **bf),
-        v_cur=torch.randn((B, KVH, DH), generator=g, **bf),
-        win_k=torch.randn((B, 8, KD), generator=g, **bf),
-        win_v=torch.randn((B, 8, KD), generator=g, **bf),
+        k_cur=torch.randn((B, KVH, dh), generator=g, **bf),
+        v_cur=torch.randn((B, KVH, dh), generator=g, **bf),
+        win_k=torch.randn((B, 8, kd), generator=g, **bf),
+        win_v=torch.randn((B, 8, kd), generator=g, **bf),
         sink=torch.randn((nh,), generator=g, device=dev),
     )
 
 
-def _sdpa_over_gathered(torch, x, k_pages, v_pages, win_len):
+def _sdpa_over_gathered(torch, x, k_pages, v_pages, win_len, window=0):
     """Yardstick of a paged decode call: SDPA over K/V already gathered
     (and, for int8 pages, dequantized to bf16) into [B, KVH, S, Dh]
-    with a key-validity mask; building them is not timed."""
+    with a key-validity mask, cut to the last ``window`` positions when
+    one is given (no sink: a little less work than the kernel's);
+    building them is not timed."""
     import torch.nn.functional as F
 
     past = x["past_len"].long()
     dev = past.device
+    nb, kvh, dh = x["k_cur"].shape
     ctx = x["page_table"].shape[1] * PS
     W = x["win_k"].shape[1]
     idx = x["page_table"].long().reshape(-1)
-    kg = k_pages[idx].reshape(B, ctx, KVH, DH)
-    vg = v_pages[idx].reshape(B, ctx, KVH, DH)
-    keys = torch.cat([kg, x["win_k"].reshape(B, W, KVH, DH), x["k_cur"][:, None]], 1)
-    vals = torch.cat([vg, x["win_v"].reshape(B, W, KVH, DH), x["v_cur"][:, None]], 1)
+    kg = k_pages[idx].reshape(nb, ctx, kvh, dh)
+    vg = v_pages[idx].reshape(nb, ctx, kvh, dh)
+    keys = torch.cat([kg, x["win_k"].reshape(nb, W, kvh, dh), x["k_cur"][:, None]], 1)
+    vals = torch.cat([vg, x["win_v"].reshape(nb, W, kvh, dh), x["v_cur"][:, None]], 1)
     keys, vals = keys.transpose(1, 2).contiguous(), vals.transpose(1, 2).contiguous()
     tok = torch.arange(ctx, device=dev)
     slot = torch.arange(W, device=dev)
-    mask = torch.cat([tok[None] < past[:, None], (slot < win_len)[None].expand(B, W),
-                      torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
+    mask = torch.cat([tok[None] < past[:, None], (slot < win_len)[None].expand(nb, W),
+                      torch.ones((nb, 1), dtype=torch.bool, device=dev)], 1)
+    if window:
+        pos = torch.cat([tok[None].expand(nb, ctx), past[:, None] + slot[None],
+                         (past + win_len)[:, None]], 1)
+        mask &= pos > (past + win_len)[:, None] - window
     mask = mask[:, None, None, :]
     qs = x["q"][:, :, None, :]
     return lambda: F.scaled_dot_product_attention(qs, keys, vals, attn_mask=mask,
                                                   enable_gqa=True)
 
 
-def _decode_bound(x, nh, win_len, int8=False):
+def _decode_bound(x, nh, win_len, int8=False, window=0):
     """The least time of a paged decode call: every live token's K and V
-    row once (int8 pages: 1 byte an element and two f32 scales a token;
-    the window slots and the current token in bf16), q in, out back, the
-    table and lengths; 4 flops per (query head, key, Dh)."""
+    row once (only those in the window on a windowed layer; int8 pages:
+    1 byte an element and two f32 scales a token; the window slots and
+    the current token in bf16), q in, out back, the table and lengths;
+    4 flops per (query head, key, Dh)."""
     n_rows, mp = x["page_table"].shape
-    page_tokens = int(x["past_len"].long().sum())
-    other = n_rows * (win_len + 1)
-    if int8:
-        kv = 2 * page_tokens * (KD + 4) + 2 * other * KD * 2
+    dh = x["q"].shape[2]
+    kd = x["k_cur"].shape[1] * dh
+    past = x["past_len"].long().cpu().numpy()
+    if window:   # the current token and the slots first, then the pages
+        other = n_rows * min(win_len + 1, window)
+        page_tokens = int(np.minimum(past, max(window - win_len - 1, 0)).sum())
     else:
-        kv = 2 * (page_tokens + other) * KD * 2
-    nbytes = kv + 2 * n_rows * nh * DH * 2 + n_rows * mp * 4 + n_rows * 4
-    return bound_ms(nbytes, 4 * (page_tokens + other) * nh * DH)
+        other = n_rows * (win_len + 1)
+        page_tokens = int(past.sum())
+    if int8:
+        kv = 2 * page_tokens * (kd + 4) + 2 * other * kd * 2
+    else:
+        kv = 2 * (page_tokens + other) * kd * 2
+    nbytes = kv + 2 * n_rows * nh * dh * 2 + n_rows * mp * 4 + n_rows * 4
+    return bound_ms(nbytes, 4 * (page_tokens + other) * nh * dh)
 
 
 def _dequantized_pools(torch, x):
@@ -523,7 +561,9 @@ def paged_decode_long(rng, torch, dev, nh, int8) -> dict:
 
 
 def _rec(kernel, **kw) -> dict:
-    return dict(kernel=kernel, name=kernel.name, **kw)
+    """A kernel-phase record: named after its kernel unless ``name``
+    says which shape of it the record is."""
+    return {"kernel": kernel, "name": kernel.name, **kw}
 
 
 def kernel_paged_decode(rng, torch, dev) -> dict:
@@ -706,15 +746,16 @@ N_PFX = 16
 GE, GH, GF, TOPK = 128, 2048, 768, 8
 
 
-def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP, n_pfx=N_PFX, suffix=(16, 257)):
+def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP, n_pfx=N_PFX, suffix=(16, 257),
+                   dh=DH):
     """Rows 0..63 of a templated batch: members' tables start with the
     ``n_pfx`` shared pages (16: the serve's 1,024-token template), every
     8th row is outside the group (a short untemplated row, so that, as
     in the serve, no row walks more than ~320 tokens of its own); each
     member has decoded into its own pages past the template and its
     suffix (``suffix``: the range of its length). Qwen3-30B-A3B's heads
-    and pages unless ``nh``/``kvh``/``mp`` say otherwise."""
-    n_pool, kd = 1 + QB * mp, kvh * DH
+    and pages unless ``nh``/``kvh``/``mp``/``dh`` say otherwise."""
+    n_pool, kd = 1 + QB * mp, kvh * dh
     member = np.ones(QB, bool)
     member[7::8] = False
     past = n_pfx * PS + rng.integers(*suffix, QB) + rng.integers(0, 57, QB)
@@ -734,14 +775,15 @@ def _prefix_inputs(rng, torch, dev, nh=QNH, kvh=QKVH, mp=QMP, n_pfx=N_PFX, suffi
     i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
     win_len = 4
     return dict(
-        q=torch.randn((QB, nh, DH), generator=g, **bf),
+        q=torch.randn((QB, nh, dh), generator=g, **bf),
         k_pages=torch.randn((n_pool, PS, kd), generator=g, **bf),
         v_pages=torch.randn((n_pool, PS, kd), generator=g, **bf),
         page_table=i32(table), past_len=i32(past),
-        k_cur=torch.randn((QB, kvh, DH), generator=g, **bf),
-        v_cur=torch.randn((QB, kvh, DH), generator=g, **bf),
+        k_cur=torch.randn((QB, kvh, dh), generator=g, **bf),
+        v_cur=torch.randn((QB, kvh, dh), generator=g, **bf),
         win_k=torch.randn((QB, 8, kd), generator=g, **bf),
         win_v=torch.randn((QB, 8, kd), generator=g, **bf),
+        sink=torch.randn((nh,), generator=g, device=dev),
         win_len=win_len,
         pages=i32(np.arange(1, 1 + n_pfx)),
         pfx_len=i32(np.where(member, n_pfx * PS, 0)),
@@ -757,9 +799,11 @@ def _carry_bound(x):
     and p.v)."""
     n_pfx = x["pages"].numel()
     pfx_tokens = n_pfx * PS
-    nbytes = (QB * QNH * DH * 2 + 2 * pfx_tokens * QKD * 2 + n_pfx * 4 + 2 * QB * 4
-              + QB * QNH * (2 * 4 + DH * 4))
-    return bound_ms(nbytes, 4 * int(x["member"].sum()) * pfx_tokens * QNH * DH)
+    nb, nh, dh = x["q"].shape
+    kd = x["k_pages"].shape[2]
+    nbytes = (nb * nh * dh * 2 + 2 * pfx_tokens * kd * 2 + n_pfx * 4 + 2 * nb * 4
+              + nb * nh * (2 * 4 + dh * 4))
+    return bound_ms(nbytes, 4 * int(x["member"].sum()) * pfx_tokens * nh * dh)
 
 
 def _carry_cold_ms(torch, pc, x) -> float:
@@ -832,20 +876,22 @@ def carry_split_sweep(torch, pc, carry_args) -> dict:
     return out
 
 
-def check_carry(torch, pc, pd, x, dev, tag: str = "") -> tuple:
-    """The carry kernel on ``x`` (windows 0 and 600, and its page list
-    padded with page 0) and the paged decode started from each carry,
+def check_carry(torch, pc, pd, x, dev, tag: str = "", window: int = 600,
+                sink: bool = False) -> tuple:
+    """The carry kernel on ``x`` (windows 0 and ``window``, which cuts the
+    prefix, and its page list padded with page 0) and the paged decode
+    started from each carry (with ``x``'s attention sink when ``sink``),
     against their plain versions: the carry kernel plus the decode
     kernel with pfx_cnt must equal the plain decode over the full table.
     Returns (carry errors, decode errors, the window-0 carry)."""
     pool = (x["q"], x["k_pages"], x["v_pages"])
     padded = torch.cat([x["pages"], torch.zeros_like(x["pages"])])  # page-0 padding
     carry_errs, dec_errs, carries = {}, {}, {}
-    for name, pages, window in (("window0", x["pages"], 0),
-                                ("window600_cuts_prefix", x["pages"], 600),
-                                ("padded_pages", padded, 0)):
+    cut = f"window{window}_cuts_prefix"
+    for name, pages, w in (("window0", x["pages"], 0), (cut, x["pages"], window),
+                           ("padded_pages", padded, 0)):
         name = tag + name
-        args = (*pool, pages, x["pfx_len"], x["q_pos"], window)
+        args = (*pool, pages, x["pfx_len"], x["q_pos"], w)
         got = pc.prefix_attention_carry(*args)
         want = pc.prefix_attention_carry_plain(*args)
         torch.cuda.synchronize()
@@ -856,15 +902,16 @@ def check_carry(torch, pc, pd, x, dev, tag: str = "") -> tuple:
                                check_close(f"prefix_carry[{name}].acc", got[2], want[2]))
         if (got[1][~torch.as_tensor(x["member"], device=dev)] != 0).any():
             raise AssertionError(f"prefix_carry[{name}]: a row outside the group got a carry")
-        carries[name] = (got, window)
+        carries[name] = (got, w)
     base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
             x["k_cur"], x["v_cur"])
-    win = dict(win_k=x["win_k"], win_v=x["win_v"], win_len=x["win_len"])
-    for name in (tag + "window0", tag + "window600_cuts_prefix"):
-        (m0, l0, acc0), window = carries[name]
-        got = pd.paged_decode_attention(*base, window, **win, pfx_cnt=x["pfx_cnt"],
+    win = dict(win_k=x["win_k"], win_v=x["win_v"], win_len=x["win_len"],
+               **({"sink": x["sink"]} if sink else {}))
+    for name in (tag + "window0", tag + cut):
+        (m0, l0, acc0), w = carries[name]
+        got = pd.paged_decode_attention(*base, w, **win, pfx_cnt=x["pfx_cnt"],
                                         m0=m0, l0=l0, acc0=acc0)
-        want = pd.paged_decode_plain(*base, window, **win)
+        want = pd.paged_decode_plain(*base, w, **win)
         torch.cuda.synchronize()
         dec_errs[name] = check_close(f"paged_decode_carry[{name}]", got, want)
     return carry_errs, dec_errs, carries[tag + "window0"][0]
@@ -1025,26 +1072,28 @@ def _library_carry(torch, x, want):
     free choice of m. Held against the plain carry ``want`` on the
     member rows; returns (callable, max |err|)."""
     q = x["q"]
-    G = QNH // QKVH
+    nb, nh, dh = q.shape
+    kvh = x["k_pages"].shape[2] // dh
+    G = nh // kvh
     S = x["pages"].numel() * PS
     idx = x["pages"].long()
 
     def heads_first(pool):   # [1, KVH, S, Dh]
-        return pool[idx].reshape(S, QKVH, DH).transpose(0, 1)[None].contiguous()
+        return pool[idx].reshape(S, kvh, dh).transpose(0, 1)[None].contiguous()
 
     kg, vg = heads_first(x["k_pages"]), heads_first(x["v_pages"])
-    qs = q.reshape(QB, QKVH, G, DH).transpose(0, 1).reshape(1, QKVH, QB * G, DH).contiguous()
+    qs = q.reshape(nb, kvh, G, dh).transpose(0, 1).reshape(1, kvh, nb * G, dh).contiguous()
     ok = torch.arange(S, device=q.device)[None] < x["pfx_len"].long()[:, None]   # [B, S]
     bias = torch.zeros(ok.shape, dtype=torch.bfloat16, device=q.device).masked_fill(~ok, -1e30)
-    bias = bias.repeat_interleave(G, 0)[None, None].expand(1, QKVH, QB * G, S).contiguous()
+    bias = bias.repeat_interleave(G, 0)[None, None].expand(1, kvh, nb * G, S).contiguous()
 
     def library():
         return torch.ops.aten._scaled_dot_product_efficient_attention(qs, kg, vg, bias, True)
 
     out, lse = library()[:2]
     torch.cuda.synchronize()
-    out = out[0].reshape(QKVH, QB, G, DH).transpose(0, 1).reshape(QB, QNH, DH)
-    lse = lse[0, :, : QB * G].reshape(QKVH, QB, G).transpose(0, 1).reshape(QB, QNH)
+    out = out[0].reshape(kvh, nb, G, dh).transpose(0, 1).reshape(nb, nh, dh)
+    lse = lse[0, :, : nb * G].reshape(kvh, nb, G).transpose(0, 1).reshape(nb, nh)
     m, l_, acc = want
     rows = torch.as_tensor(x["member"], device=q.device)
     err = max(check_close("prefix_carry library: out", out[rows], (acc / l_[..., None])[rows]),
@@ -1193,6 +1242,161 @@ def kernel_grouped_matmul(rng, torch, dev) -> dict:
                 library=t["library"], timed_cases=timed)
 
 
+# gpt-oss-20b (serve 8): 64 query heads over 8 KV heads of 64, a sink
+# and a 128-token window on every other layer, 32 experts top-4 at
+# H = F = 2,880 (22.5 of the grouped GEMM's 128-wide tiles)
+ONH, OKVH, ODH, OWIN = 64, 8, 64, 128
+OE, OH, OTOPK = 32, 2880, 4
+
+
+def _window_causal_flops(Bc: int, T: int, window: int, nh: int, dh: int) -> float:
+    """4 flops per (query, key in its window or causal past), head and
+    column: the work a causal prefill over ``T`` tokens needs."""
+    keys = np.minimum(np.arange(1, T + 1), window) if window else np.arange(1, T + 1)
+    return 4.0 * Bc * float(keys.sum()) * nh * dh
+
+
+def kernel_gpt_oss(rng, torch, dev) -> list:
+    """Every kernel of serve 8's path at gpt-oss-20b's shapes, held
+    against its plain version and timed beside its bound and library
+    call: flash prefill over 8 x 500 tokens with the sink and the
+    128-token window (the windowed layers) and without either, beside
+    SDPA with the window as a mask and no sink (less work); the paged
+    decode in a fused window, the same two ways; the prefix carry over
+    16 shared pages and the decode started from it (``check_carry``:
+    windows 0 and 128, which cuts the prefix, the sink in the decode);
+    the grouped GEMM at M = 256 (a decode step of 64 rows) and 16,000
+    over 32 experts, gate/up and down, one expert empty, beside
+    ``torch._grouped_mm``."""
+    import torch.nn.functional as F
+    from sutro_tpu_torch.ops import flash_prefill as fp
+    from sutro_tpu_torch.ops import grouped_matmul as gm
+    from sutro_tpu_torch.ops import paged_decode as pd
+    from sutro_tpu_torch.ops import prefix_carry as pc
+
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    recs = []
+
+    # -- flash prefill, 8 x 500 --------------------------------------------
+    Bc, T = 8, 500
+    args = (torch.randn((Bc, T, ONH, ODH), generator=g, **bf),
+            torch.randn((Bc, T, OKVH, ODH), generator=g, **bf),
+            torch.randn((Bc, T, OKVH, ODH), generator=g, **bf))
+    sink = torch.randn((ONH,), generator=g, device=dev)
+    q, k, v = (t.transpose(1, 2).contiguous() for t in args)
+    t_idx = torch.arange(T, device=dev)
+    band = (t_idx[None] <= t_idx[:, None]) & (t_idx[None] > t_idx[:, None] - OWIN)
+    nbytes = 2 * Bc * T * ONH * ODH * 2 + 2 * Bc * T * OKVH * ODH * 2
+    for tag, kw, lib in (
+            ("window128_sink", dict(window=OWIN, sink=sink),
+             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band, enable_gqa=True)),
+            ("full", {}, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                enable_gqa=True))):
+        err = check_close(f"flash_prefill[gpt-oss {tag}]", fp.flash_prefill(*args, **kw),
+                          fp.flash_prefill_plain(*args, **kw))
+        bms, by = bound_ms(nbytes, _window_causal_flops(Bc, T, kw.get("window", 0), ONH, ODH))
+        recs.append(_rec(fp.KERNEL, name=f"flash_prefill[gpt-oss-20b {tag}]", max_abs_err=err,
+                         ms=time_ms(lambda: fp.flash_prefill(*args, **kw)),
+                         plain_ms=time_ms(lambda: fp.flash_prefill_plain(*args, **kw), iters=3,
+                                          warmup=1),
+                         bound_ms=bms, bound_by=by, library_ms=time_ms(lib),
+                         library="SDPA, the window as a mask, no sink (less work)"
+                         if kw else "SDPA, causal",
+                         cases={tag: err}, shape=[Bc, T, ONH, OKVH, ODH]))
+    del args, q, k, v, band
+
+    # -- paged decode, 64 rows in a fused window ---------------------------
+    x = _decode_inputs(rng, torch, dev, nh=ONH, dh=ODH)
+    base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
+            x["k_cur"], x["v_cur"])
+    win = dict(win_k=x["win_k"], win_v=x["win_v"], win_len=4)
+    for tag, kw in (("window128_sink", dict(window=OWIN, sink=x["sink"])), ("full", {})):
+        call = dict(kw, **win)
+        err = check_close(f"paged_decode[gpt-oss {tag}]", pd.paged_decode_attention(*base, **call),
+                          pd.paged_decode_plain(*base, **call))
+        bms, by = _decode_bound(x, ONH, 4, window=kw.get("window", 0))
+        recs.append(_rec(pd.KERNEL, name=f"paged_decode[gpt-oss-20b {tag}]", max_abs_err=err,
+                         ms=time_ms(lambda: pd.paged_decode_attention(*base, **call)),
+                         plain_ms=time_ms(lambda: pd.paged_decode_plain(*base, **call), iters=5),
+                         bound_ms=bms, bound_by=by,
+                         library_ms=time_ms(_sdpa_over_gathered(torch, x, x["k_pages"],
+                                                                x["v_pages"], 4,
+                                                                kw.get("window", 0))),
+                         library="SDPA over K/V gathered beforehand, the window as a mask, "
+                                 "no sink", cases={tag: err}))
+    del x, base
+
+    # -- the prefix carry over 16 shared pages, and the decode from it -----
+    y = _prefix_inputs(rng, torch, dev, nh=ONH, kvh=OKVH, mp=MP, n_pfx=16, dh=ODH)
+    carry_errs, dec_errs, (m0, l0, acc0) = check_carry(torch, pc, pd, y, dev, "gpt_oss_",
+                                                       window=OWIN, sink=True)
+    carry_args = (y["q"], y["k_pages"], y["v_pages"], y["pages"], y["pfx_len"], y["q_pos"], 0)
+    library, lib_err = _library_carry(torch, y, pc.prefix_attention_carry_plain(*carry_args))
+    bc, byc = _carry_bound(y)
+    recs.append(_rec(pc.KERNEL, name="prefix_carry[gpt-oss-20b 16 pages]",
+                     max_abs_err=max(carry_errs.values()),
+                     ms=time_ms(lambda: pc.prefix_attention_carry(*carry_args)),
+                     plain_ms=time_ms(lambda: pc.prefix_attention_carry_plain(*carry_args),
+                                      iters=5),
+                     bound_ms=bc, bound_by=byc, library_ms=time_ms(library),
+                     library="aten._scaled_dot_product_efficient_attention with its "
+                             "log-sum-exp", cases={**carry_errs, "library_vs_plain": lib_err}))
+    del library
+    ybase = (y["q"], y["k_pages"], y["v_pages"], y["page_table"], y["past_len"],
+             y["k_cur"], y["v_cur"])
+    dec_kw = dict(win_k=y["win_k"], win_v=y["win_v"], win_len=y["win_len"], sink=y["sink"],
+                  pfx_cnt=y["pfx_cnt"], m0=m0, l0=l0, acc0=acc0)
+    own = int(np.where(y["member"], y["past"] - 16 * PS, y["past"]).sum())
+    live = own + QB * (y["win_len"] + 1)
+    kd = OKVH * ODH
+    nbytes = (2 * live * kd * 2 + 2 * QB * ONH * ODH * 2 + QB * ONH * (2 * 4 + ODH * 4)
+              + QB * MP * 4 + 2 * QB * 4)
+    bd, byd = bound_ms(nbytes, 4 * live * ONH * ODH)
+    recs.append(_rec(pd.CARRY, name="paged_decode_carry[gpt-oss-20b sink]",
+                     max_abs_err=max(dec_errs.values()),
+                     ms=time_ms(lambda: pd.paged_decode_attention(*ybase, 0, **dec_kw)),
+                     plain_ms=time_ms(lambda: pd.paged_decode_plain(*ybase, 0, **dec_kw),
+                                      iters=5),
+                     bound_ms=bd, bound_by=byd, library_ms=None, cases=dec_errs))
+    del y, ybase, dec_kw, m0, l0, acc0
+
+    # -- the grouped GEMM over 32 experts at H = F = 2,880 ------------------
+    router = torch.randn((OH, OE), generator=g, device=dev) * OH ** -0.5
+    w = torch.randn((OE, OH, OH), generator=g, **bf) * OH ** -0.5
+    w_down = torch.randn((OE, OH, OH), generator=g, **bf) * OH ** -0.5
+    for M in (256, 16000):
+        logits = torch.randn((M // OTOPK, OH), generator=g, device=dev) @ router
+        logits[:, OE // 2] = float("-inf")   # one expert gets no rows
+        sizes = torch.bincount(torch.topk(logits, OTOPK, dim=-1).indices.reshape(-1),
+                               minlength=OE).tolist()
+        gs = torch.as_tensor(np.asarray(sizes, np.int32), device=dev)
+        used = sum(1 for n in sizes if n)
+        per = {}
+        for proj, rhs in (("gate", w), ("down", w_down)):
+            lhs = torch.randn((M, OH), generator=g, **bf)
+            err = check_close(f"grouped_matmul[gpt-oss M{M} {proj}]",
+                              gm.grouped_matmul(lhs, rhs, gs), gm.grouped_matmul_plain(lhs, rhs, gs))
+            lib, lib_name = _library_grouped_mm(torch, lhs, rhs, sizes)
+            bms, by = bound_ms(M * OH * 2 + used * OH * OH * 2 + M * OH * 2 + OE * 4,
+                               2.0 * M * OH * OH)
+            per[proj] = dict(ms=time_ms(lambda: gm.grouped_matmul(lhs, rhs, gs)),
+                             plain_ms=time_ms(lambda: gm.grouped_matmul_plain(lhs, rhs, gs),
+                                              iters=3, warmup=1),
+                             library_ms=time_ms(lib), library=lib_name, bound_ms=bms,
+                             bound_by=by, max_abs_err=err, experts_used=used)
+            del lhs, lib
+        t = per["gate"]
+        recs.append(_rec(gm.KERNEL, name=f"grouped_matmul[gpt-oss-20b M={M}]",
+                         max_abs_err=max(p["max_abs_err"] for p in per.values()),
+                         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"], library_ms=t["library_ms"],
+                         library=t["library"], cases={p: v["max_abs_err"] for p, v in per.items()},
+                         timed_cases={f"M{M}_{p}": v for p, v in per.items()}))
+    del w, w_down
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
@@ -1213,10 +1417,55 @@ def plain_kernels():
         attention.flash_prefill, moe.grouped_matmul = saved
 
 
+@contextlib.contextmanager
+def routing(record=None, replay=None, flips=None):
+    """The MoE router's expert choices recorded (``record``: one
+    ``top_idx`` [N, K] a call, in call order) or replayed (``replay``:
+    the choices to take, call by call; each call's weights are the
+    softmax of its own logits at those experts, and ``flips`` counts
+    the tokens whose own top-k differs). Under random weights the
+    router's margins are tiny, so bf16 rounding flips some tokens'
+    experts and the flips compound through the depth
+    (``check_prefill_logits`` prints them layer by layer): a check that
+    holds the kernels against their plain versions replays the kernel
+    run's routing in the plain run."""
+    import torch
+    from sutro_tpu_torch.ops import moe
+
+    real = moe._route
+
+    def route(xt, router, router_b, top_k):
+        out = real(xt, router, router_b, top_k)
+        if record is not None:
+            record.append(out[0].clone())
+        if replay is None:
+            return out
+        idx = replay[route.calls]
+        route.calls += 1
+        if flips is not None:
+            flips.append(int((out[0].sort(-1).values != idx.sort(-1).values).any(-1).sum()))
+        logits = xt.float() @ router.float()
+        if router_b is not None:
+            logits = logits + router_b.float()
+        probs = torch.softmax(logits.gather(1, idx), dim=-1)
+        M = idx.numel()
+        return (idx, probs, idx.reshape(M), torch.arange(M, device=xt.device) // top_k,
+                probs.reshape(M))
+
+    route.calls = 0
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
 def check_prefill_logits(torch, runner, rows, label: str) -> float:
     """Prefill logits of ``rows`` (batched, through the kernels, into
     pages 1.. of the pool) against a cache-free forward of each row
-    through the plain versions. Returns the relative L2 error."""
+    through the plain versions; for a MoE model the plain forward takes
+    the kernel run's expert choices (``routing``). Returns the relative
+    L2 error."""
     from sutro_tpu_torch.engine.kvcache import make_page_table, pages_needed
     from sutro_tpu_torch.models import transformer
 
@@ -1226,22 +1475,31 @@ def check_prefill_logits(torch, runner, rows, label: str) -> float:
         n = pages_needed(len(r), ecfg.kv_page_size)
         pages.append(list(range(nxt, nxt + n)))
         nxt += n
-    got = runner.prefill_batch(rows, make_page_table(pages, ecfg.max_pages_per_seq))
+    routes, flips = [], []
+    with routing(record=routes):
+        got = runner.prefill_batch(rows, make_page_table(pages, ecfg.max_pages_per_seq))
     ref = []
     with plain_kernels(), torch.no_grad():
-        for r in rows:
+        for i, r in enumerate(rows):
+            # the batch's [B, T] layout: this row's first len(r) tokens
+            replay = [x.reshape(len(rows), -1, x.shape[-1])[i, : len(r)] for x in routes]
             ids = torch.as_tensor(r[None], device=runner.device)
             pos = torch.arange(len(r), device=runner.device)[None]
-            lg, _, _ = transformer.forward(
-                mcfg, runner.params, ids, pos,
-                torch.as_tensor([len(r)], device=runner.device),
-                head_index=torch.as_tensor([len(r) - 1], device=runner.device),
-            )
+            with routing(replay=replay if routes else None, flips=flips):
+                lg, _, _ = transformer.forward(
+                    mcfg, runner.params, ids, pos,
+                    torch.as_tensor([len(r)], device=runner.device),
+                    head_index=torch.as_tensor([len(r) - 1], device=runner.device),
+                )
             ref.append(lg[0, 0].float().cpu().numpy())
     ref = np.stack(ref)
     rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
     agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-    print(f"{label}: prefill logits vs cache-free plain forward: rel_l2={rel:.3e} "
+    per_layer = np.asarray(flips).reshape(len(rows), -1).sum(0).tolist() if routes else []
+    pinned = (f" (the kernel run's routing; the plain router would pick other experts "
+              f"for {sum(flips)} of {sum(len(r) for r in rows) * len(routes)} token-layers, "
+              f"by layer {per_layer})") if routes else ""
+    print(f"{label}: prefill logits vs cache-free plain forward{pinned}: rel_l2={rel:.3e} "
           f"argmax_agree={agree}/{len(rows)} max_abs={float(np.abs(got - ref).max()):.3e}",
           flush=True)
     # bf16 weights/activations through the whole depth: a relative L2
@@ -1415,14 +1673,18 @@ def prefill_template_rows(runner, template, rows, room: int = 1, n_groups: int =
     return tables
 
 
-def check_split_decode(torch, runner, template, rows, rng, label: str, n_groups: int = 1):
+def check_split_decode(torch, runner, template, rows, rng, label: str, n_groups: int = 1,
+                       layers=(0,)):
     """The template in pages 1.. (``n_groups`` copies: ``n_groups``
     prefix groups live in one step, as a batch job's and the chats' can
     be), ``rows``' suffixes after it; then one decode step over those
-    pages with and without the prefix groups. Held two ways: layer 0's
-    attention output on the same pool (one layer of rounding: the kernel
-    phase's atol = rtol), and the logits after the whole depth (rel-L2
-    under REL_L2). Returns (logits rel-L2, layer-0 max |err|, tables)."""
+    pages with and without the prefix groups. Held two ways: the
+    attention output of each of ``layers`` (with the layer's window and
+    sink) on the same pool (one layer of rounding: the kernel phase's
+    atol = rtol), and the logits after the whole depth (rel-L2 under
+    REL_L2; a MoE model's full-table step takes the split step's
+    experts, ``routing``). Returns (logits rel-L2, the layers' max
+    |err|, tables)."""
     from sutro_tpu_torch.models import transformer
     from sutro_tpu_torch.ops import attention
 
@@ -1439,27 +1701,40 @@ def check_split_decode(torch, runner, template, rows, rng, label: str, n_groups:
          torch.as_tensor(np.where(member[g], len(template), 0), dtype=torch.int32, device=dev))
         for g in range(n_groups))
 
-    # layer 0's attention: random current-token q/k/v over the real pool
+    # each layer's attention: random current-token q/k/v over the real
+    # pool, with the layer's window and sink
     NHq, KVHq, Dh = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
     bf = dict(dtype=torch.bfloat16, device=dev, generator=g)
     q = torch.randn((n_rows, 1, NHq, Dh), **bf)
     k, v = (torch.randn((n_rows, 1, KVHq, Dh), **bf) for _ in range(2))
-    akw = dict(positions=past[:, None], valid_len=ones, past_len=past, page_table=table_t,
-               past_k_pages=runner.cache.k_pages[0], past_v_pages=runner.cache.v_pages[0])
-    attn_err = check_close(f"{label}: layer-0 attention with vs without prefix groups",
-                           attention.chunk_attention(q, k, v, pfx_groups=groups, **akw),
-                           attention.chunk_attention(q, k, v, **akw))
+    windows = mcfg.window_array()
+    attn_err = 0.0
+    for layer in layers:
+        sink = runner.params["layers"]["sink"][layer] if mcfg.attention_sink else None
+        akw = dict(positions=past[:, None], valid_len=ones, past_len=past, page_table=table_t,
+                   past_k_pages=runner.cache.k_pages[layer],
+                   past_v_pages=runner.cache.v_pages[layer], window=int(windows[layer]),
+                   sink=sink)
+        attn_err = max(attn_err, check_close(
+            f"{label}: layer-{layer} attention (window {int(windows[layer])}) with vs without "
+            "prefix groups",
+            attention.chunk_attention(q, k, v, pfx_groups=groups, **akw),
+            attention.chunk_attention(q, k, v, **akw)))
 
     ids = torch.as_tensor(rng.integers(3, 256, (n_rows, 1)), dtype=torch.int32, device=dev)
     kw = dict(paged_past=(runner.cache.k_pages, runner.cache.v_pages, table_t), past_len=past)
+    routes = []   # a MoE model's full-table step takes the split step's experts
     with torch.no_grad():
-        split, _, _ = transformer.forward(mcfg, runner.params, ids, past[:, None], ones,
-                                          pfx_groups=groups, **kw)
-        full, _, _ = transformer.forward(mcfg, runner.params, ids, past[:, None], ones, **kw)
+        with routing(record=routes):
+            split, _, _ = transformer.forward(mcfg, runner.params, ids, past[:, None], ones,
+                                              pfx_groups=groups, **kw)
+        with routing(replay=routes or None):
+            full, _, _ = transformer.forward(mcfg, runner.params, ids, past[:, None], ones,
+                                             **kw)
     split, full = split[:, 0].float().cpu().numpy(), full[:, 0].float().cpu().numpy()
     rel = float(np.linalg.norm(split - full) / np.linalg.norm(full))
-    print(f"{label}: decode with vs without prefix groups: layer-0 attention "
+    print(f"{label}: decode with vs without prefix groups: layers {list(layers)} attention "
           f"max_abs={attn_err:.3e}; logits rel_l2={rel:.3e} "
           f"argmax_agree={int((split.argmax(-1) == full.argmax(-1)).sum())}/{n_rows}",
           flush=True)
@@ -2520,6 +2795,21 @@ def serve_online(torch, kernels, absent, card: str, ckpt_root: Path, *, model="q
             raise AssertionError("serve7: interactive requests failed:\n" + "\n".join(errors))
         t_burst_end = time.monotonic()
         metrics_burst = c.get_metrics_text()
+        # the live monitor over HTTP, its window over the burst: the
+        # interactive p99s and the stock TTFT rule's state, then two
+        # ticks of its NDJSON stream
+        mon = c.get_monitor()
+        ttft_rule = next(r for r in mon["rules"] if r["name"] == "interactive_ttft_p99")
+        resp = c.do_request("get", "monitor/stream?ticks=2", stream=True)
+        resp.raise_for_status()
+        ticks = [json.loads(line) for line in resp.iter_lines() if line]
+        monitor = {"ticks": mon["ticks"], "ttft_p99_s": mon["stats"].get("ttft_p99_s"),
+                   "itl_p99_s": mon["stats"].get("itl_p99_s"),
+                   "ttft_rule": {k: ttft_rule[k] for k in ("state", "value", "threshold")},
+                   "stream_records": [r["t"] for r in ticks]}
+        if (mon["ticks"] < 1 or monitor["ttft_p99_s"] is None or monitor["itl_p99_s"] is None
+                or [r["t"] for r in ticks[:2]] != ["tick", "tick"]):
+            raise AssertionError(f"serve7: the monitor over HTTP: {monitor}")
         if c.await_job_completion(jid, obtain_results=False, timeout=900) != jid:
             raise AssertionError(f"serve7: job B ended {c.get_job_status(jid)}")
         follower.join(timeout=60)
@@ -2790,7 +3080,7 @@ def serve_online(torch, kernels, absent, card: str, ckpt_root: Path, *, model="q
                  "int8_bytes_promoted": page_bytes * moved["promote"], **stages,
                  "promoted_pages_checked": checked, "worst_err_of_bound": worst},
         "finishes_streamed_collected": finishes,
-        "replayed": replayed, "warm_vs_cold_rel_l2": rel,
+        "replayed": replayed, "warm_vs_cold_rel_l2": rel, "monitor": monitor,
         "warm_tokens": int(h.tokens), "shared_prefix_tokens": len(template),
         "split_vs_full_rel_l2": [x[0] for x in split_checks],
         "split_vs_full_layer0_attn_max_abs": [x[1] for x in split_checks],
@@ -2816,6 +3106,484 @@ def serve_online(torch, kernels, absent, card: str, ckpt_root: Path, *, model="q
     return out
 
 
+# ---------------------------------------------------------------------
+# serve 8: stage graphs, the control plane and the monitor on gpt-oss-20b
+# ---------------------------------------------------------------------
+
+# the judge stage's schema: two of two labels, mostly forced by the
+# constraint's fast-forward (a random-weight model commits ~1 token a
+# row a window)
+RANKING_SCHEMA = {
+    "type": "object",
+    "properties": {"ranking": {"type": "array", "items": {"enum": ["A", "B"]},
+                               "minItems": 2, "maxItems": 2}},
+    "required": ["ranking"],
+}
+
+
+def ranking_errors(text: str) -> list:
+    """What is wrong with ``text`` under ``RANKING_SCHEMA``; empty when
+    it is valid."""
+    try:
+        obj = json.loads(text)
+    except ValueError as e:
+        return [f"not JSON: {e}"]
+    if not isinstance(obj, dict) or set(obj) != {"ranking"}:
+        return [f"not a ranking object: {obj!r}"]
+    r = obj["ranking"]
+    if not isinstance(r, list) or len(r) != 2 or not all(x in ("A", "B") for x in r):
+        return [f"ranking {r!r}"]
+    return []
+
+
+def graph_stages(gen_system: str, crit_system: str, gen_new: int, crit_new: int,
+                 judge_new: int, max_pairs: int, min_length: int = 8) -> list:
+    """Serve 8's stage graph: gen -> critique -> keep -> pairs -> judge -> elo."""
+    return [
+        {"name": "gen", "kind": "map", "system_prompt": gen_system,
+         "sampling_params": {"max_new_tokens": gen_new}},
+        {"name": "critique", "kind": "map", "after": ["gen"], "system_prompt": crit_system,
+         "prompt_template": "critique: {input}", "sampling_params": {"max_new_tokens": crit_new}},
+        {"name": "keep", "kind": "filter", "after": ["critique"],
+         "predicate": {"type": "min_length", "value": min_length}},
+        {"name": "pairs", "kind": "pair", "after": ["keep"], "max_pairs": max_pairs},
+        {"name": "judge", "kind": "map", "after": ["pairs"],
+         "prompt_template": "Which reply is better, a or b? {input}",
+         "output_schema": RANKING_SCHEMA, "sampling_params": {"max_new_tokens": judge_new}},
+        {"name": "elo", "kind": "elo", "after": ["judge"]},
+    ]
+
+
+def serve_graphs(torch, kernels, absent, card: str, *, model="gpt-oss-20b", device="cuda",
+                 geometry=None, n_gen=96, gen_chars=(16, 257), gen_system_chars=500,
+                 crit_system_chars=1000, gen_new=48, crit_new=32, max_pairs=48, p1_rows=128,
+                 p1_new=96, p0_rows=16, p0_new=16, monitor_interval=0.5, seed=0) -> dict:
+    """Serve 8: stage graphs (``so.run_graph``), the control plane and the
+    live monitor, through ``import sutro_tpu_torch as so`` on a new
+    ``LocalEngine`` for ``model`` (``stepprofile.ENGINES``' geometry:
+    64-token pages, 32 a row, B=64, windows of 8, ``prefix_split``),
+    random weights from the seed and the byte tokenizer, telemetry and
+    the monitor on (as by default; a tick every ``monitor_interval`` s
+    over a 10 s window), and the control plane on, its row buckets
+    (``n_gen + p1_rows + 16`` rows a minute) small enough to refuse one
+    submit, ``wait=1``. The head's columns but for the printable ASCII
+    bytes' and the stop ids' are zeroed, as in serve 7, so that replies
+    are text.
+
+    A. A dry run, then one stage graph through ``so.run_graph`` (tenant
+    ``acme``, priority 1): ``gen`` (``n_gen`` rows under a ~500-token
+    system prompt, ``gen_new`` tokens, greedy) -> ``critique`` ("critique:
+    {input}" under a ~1,000-token system prompt that starts with gen's,
+    a prefix group, ``crit_new`` tokens, fed as gen's rows land) -> ``keep`` (min_length)
+    -> ``pairs`` (``max_pairs``) -> ``judge`` (``RANKING_SCHEMA``) ->
+    ``elo``, the sink. Held: the dry run's price is the whole DAG's as
+    ``graph_cost_bounds`` gives it; the job and every stage succeed with
+    their row counts; each downstream stage's inputs are its template
+    over its upstream stage's outputs (the host stages' rows recomputed
+    here); critique's first result lands before gen is done; the prefix
+    store saved tokens; every judge row is valid under its schema; the
+    sink is the ELO (``templates.evals.elo_fit``) of the parsed
+    rankings; the progress stream carries ``stages`` updates.
+
+    B. The ladder and the buckets: job P1 (``acme``, priority 1,
+    ``p1_rows`` rows, ``p1_new`` tokens) fills the batch; once it
+    decodes, P0 (``beta``, priority 0, ``p0_rows`` rows, ``p0_new``
+    tokens) attaches, and one more ``beta`` submit of the bucket's whole
+    capacity must be refused ``QUOTA_EXCEEDED``. P1 rows must be
+    suspended (``preempt_suspend``), P0 must end first, P1 with all its
+    rows, and the plane's preemption count must be P1's.
+
+    C. The monitor: mid-run (P1 running, P0 done) ``so.get_monitor()``
+    must show 2 ticks or more, batch rows/s above 0, an in-flight
+    doctor verdict for P1 and the ``enforcement`` section with the
+    preemptions and the rejection; a rule set through
+    ``monitor.set_rules`` (``jobs_running > 0.5``) must go pending ->
+    firing -> resolved, its firing dumping the flight recorder next to
+    P1. Neither the monitor nor the plane may degrade.
+
+    ``kernels`` must launch in A and B, ``absent`` must not. Then, on the
+    runner with its whole head: prefill logits of 4 gen prompts against
+    a cache-free plain forward, and ``check_split_decode`` over two sets
+    of 8 critique prompts (layers 0, windowed, and 1)."""
+    import os
+    import threading
+
+    import sutro_tpu_torch as so
+    from sutro_tpu_torch.engine import api, stagegraph
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.constrain import schema_constraint_factory
+    from sutro_tpu_torch.engine.constrain.fsm import constraint_room
+    from sutro_tpu_torch.engine.jobstore import estimate_cost
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer, encode_chat_batch
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+    from sutro_tpu_torch.telemetry.monitor import DEFAULT_RULES, SLORule
+    from sutro_tpu_torch.templates.evals import elo_fit
+
+    t_serve = time.monotonic()
+    mcfg = MODEL_CONFIGS[model]
+    geometry = dict(geometry or ENGINES[model][0])
+    rows_cap = n_gen + p1_rows + 16
+    ecfg = EngineConfig(**geometry, seed=seed,
+                        control=f"rows={rows_cap},tokens=1e12,wait=1,window=60,aging=3600")
+    saved_env = {k: os.environ.get(k) for k in ("SUTRO_MONITOR_INTERVAL", "SUTRO_MONITOR_WINDOW")}
+    os.environ["SUTRO_MONITOR_INTERVAL"] = str(monitor_interval)
+    os.environ["SUTRO_MONITOR_WINDOW"] = "10"
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 8)
+    text = lambda n: "".join(rng.choice(ALPHABET, int(n)))  # noqa: E731
+    # the critique prompt extends gen's (one policy preamble, then the
+    # critic's instructions): its head is warm in the store once gen's
+    # is prefilled
+    gen_system = online_system_prompt(rng, gen_system_chars)
+    crit_system = gen_system + online_system_prompt(rng, crit_system_chars - gen_system_chars)
+    rows = [text(n) for n in rng.integers(*gen_chars, n_gen)]
+    judge_new = constraint_room(schema_constraint_factory(RANKING_SCHEMA, tok)()) + 4
+    stages = graph_stages(gen_system, crit_system, gen_new, crit_new, judge_new, max_pairs)
+    catalog = {"gpt-oss-20b": "gpt-oss-20b"}.get(model, model)
+    sampling = {"temperature": 0.0}
+
+    engine = api.get_engine(ecfg, device=device)
+    so._instance._engine = None
+    if engine.monitor is None or engine.control is None:
+        raise AssertionError(f"serve8: monitor {engine.monitor}, control {engine.control}")
+    submitted = []   # every job id the engine gave a submit, in order
+    real_submit = engine.submit_batch_inference
+
+    def submit(payload):
+        jid = real_submit(payload)
+        submitted.append(jid)
+        return jid
+
+    engine.submit_batch_inference = submit
+    # what each fed stage was given: stage -> row id -> rendered prompt
+    fed = {}
+    real_feed = stagegraph.StageGraphRunner._feed_rows
+
+    def feed(self, st, rows_in):
+        for rid, txt in rows_in:
+            fed.setdefault(st.name, {})[int(rid)] = st.render(txt)
+        return real_feed(self, st, rows_in)
+
+    stagegraph.StageGraphRunner._feed_rows = feed
+    dumps = []   # (job id, rule, telemetry.json written) per alert dump
+    real_dump = engine.monitor._alert_dump
+
+    def dump(job_id, alert):
+        real_dump(job_id, alert)
+        dumps.append((job_id, alert["rule"],
+                      (engine.jobs._dir(job_id) / "telemetry.json").exists()))
+
+    engine.monitor._alert_dump = dump
+    t_build = time.monotonic()
+    runner = engine._get_runner(mcfg.name, mcfg)[0]
+    build_s = time.monotonic() - t_build
+    info = runner.device_info()
+    pool_gb = 2 * runner.cache.k_pages.numel() * runner.cache.k_pages.element_size() / 1e9
+    # the estimate: ~20.9 B bf16 parameters, and a pool of 64 rows x 32
+    # pages x 64 tokens x (24 layers x 2 x 8 x 64 x 2 B = 49,152 B a token)
+    print(f"serve8: {model} built in {build_s:.1f}s: {json.dumps(info)}; weights "
+          f"{info['param_bytes'] / 1e9:.2f} GB (estimate 41.8), pool {pool_gb:.2f} GB "
+          f"(estimate 6.4); {torch.cuda.memory_allocated() / 1e9 if device != 'cpu' else 0:.2f} "
+          "GB allocated", flush=True)
+    head = runner.params.get("lm_head")
+    if head is not None:
+        keep_cols = torch.as_tensor([*range(32, 127), *tok.stop_ids()], device=head.device)
+        with torch.no_grad():
+            whole = head.clone()
+            head.zero_()
+            head[:, keep_cols] = whole[:, keep_cols]
+    calls = {}
+    count_decode_calls(runner, calls)
+    watch = {"states": [], "stop": False}   # the smoke rule's states as polled
+
+    def watcher():
+        last = None
+        while not watch["stop"]:
+            for r in engine.monitor.snapshot_doc()["rules"]:
+                if r["name"] == "smoke_jobs_running" and r["state"] != last:
+                    last = r["state"]
+                    watch["states"].append(last)
+            time.sleep(0.02)
+
+    for k in (*kernels, *absent):
+        k.launches = 0
+    t_start = time.monotonic()
+    try:
+        # -- A: a dry run, then the graph ----------------------------------
+        est = so.run_graph(rows, stages=stages, model=catalog, job_priority=1, dry_run=True,
+                           tenant="acme", sampling_params=sampling)
+        dry = engine.get_job(submitted[-1])
+        graph = stagegraph.parse_graph(stages, default_model=catalog)
+        extra_in, _ = stagegraph.graph_cost_bounds(graph, n_gen, ecfg.max_new_tokens)
+        root_in = sum(len(x) for x in encode_chat_batch(tok, rows, gen_system, mcfg.chat_template))
+        n_rows_est = stagegraph.estimate_stage_rows(graph, n_gen)
+        est_out = sum(n_rows_est[s.name] * int(s.sampling_params["max_new_tokens"])
+                      for s in graph.stages if s.kind == "map")
+        want_cost = estimate_cost(mcfg.name, root_in + extra_in, est_out)
+        if (dry["status"] != "SUCCEEDED" or dry["input_tokens"] != root_in + extra_in
+                or est != want_cost or dry["cost_estimate"] != want_cost):
+            raise AssertionError(f"serve8: dry run priced {est} for {dry['input_tokens']} input "
+                                 f"tokens, not {want_cost} for {root_in} + {extra_in}")
+        progress = []
+
+        t_graph = time.monotonic()
+        jid = so.run_graph(rows, stages=stages, model=catalog, job_priority=1, tenant="acme",
+                           stay_attached=False, sampling_params=sampling)
+        if jid is None:
+            raise AssertionError(f"serve8: the graph was refused: {engine.get_job(submitted[-1])}")
+        follower = threading.Thread(
+            target=lambda: progress.extend(engine.stream_job_progress(jid)), daemon=True)
+        follower.start()
+        status = so.await_job_completion(jid, obtain_results=False, timeout=1800)
+        graph_wall = time.monotonic() - t_graph
+        follower.join(timeout=60)
+        rec = engine.get_job(jid)
+        if rec["status"] != "SUCCEEDED" or status != jid:
+            raise AssertionError(f"serve8: the graph ended {rec['status']}: "
+                                 f"{rec.get('failure_reason')} {rec.get('failure_log')}")
+        res = {s["name"]: engine.job_results(f"{jid}/stages/{s['name']}",
+                                             include_inputs=s["name"] == "gen")
+               for s in stages}
+        for name, r in res.items():
+            if "errors" in r:
+                raise AssertionError(f"serve8: stage {name} quarantined rows: {r['errors']}")
+        gen_out = res["gen"]["outputs"]
+        if res["gen"]["inputs"] != rows or len(gen_out) != n_gen:
+            raise AssertionError("serve8: gen's rows are not the graph's inputs 1:1")
+        # each downstream stage's inputs: its template over its upstream
+        # stage's outputs, the host stages recomputed here
+        want_crit = {i: "critique: " + o for i, o in enumerate(gen_out)}
+        crit_out = res["critique"]["outputs"]
+        keep = [o for o in crit_out if len(o) >= 8]
+        pairs = []
+        for i in range(len(keep)):
+            for j in range(i + 1, len(keep)):
+                if len(pairs) < max_pairs:
+                    pairs.append(json.dumps({"a": keep[i], "b": keep[j], "a_row": i,
+                                             "b_row": j}, sort_keys=True))
+        want_judge = {i: "Which reply is better, a or b? " + p for i, p in enumerate(pairs)}
+        judge_out = res["judge"]["outputs"]
+        bad = {i: ranking_errors(o) for i, o in enumerate(judge_out) if ranking_errors(o)}
+        players, elo, _ = elo_fit([json.loads(o)["ranking"] for o in judge_out
+                                   if not ranking_errors(o)])
+        want_elo = [json.dumps({"player": p, "elo": round(float(e), 6)}, sort_keys=True)
+                    for p, e in zip(players, elo)]
+        sink = engine.job_results(jid)["outputs"]
+        checks = {
+            "critique fed": fed.get("critique") == want_crit and len(crit_out) == n_gen,
+            "keep": res["keep"]["outputs"] == keep,
+            "pairs": res["pairs"]["outputs"] == pairs,
+            "judge fed": bool(pairs) and fed.get("judge") == want_judge
+            and len(judge_out) == len(pairs),
+            "judge schema": not bad,
+            "elo": res["elo"]["outputs"] == want_elo == sink,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"serve8: stage checks {checks}; bad judge rows {bad}")
+        want_rows = {"gen": n_gen, "critique": n_gen, "keep": len(keep), "pairs": len(pairs),
+                     "judge": len(pairs), "elo": len(players)}
+        roll = rec["stages_state"]
+        for name, n in want_rows.items():
+            s = roll[name]
+            if (s["status"], s["rows_done"], s["rows_total"], s["quarantined"]) != (
+                    "succeeded", n, n, 0):
+                raise AssertionError(f"serve8: stage {name} rolled up {s}, not {n} rows")
+        tel = so.get_job_telemetry(jid)["attrs"]
+        st_t = tel["stages"]
+        if not st_t["critique"]["first_result_s"] < st_t["gen"]["done_s"]:
+            raise AssertionError(f"serve8: critique's first result {st_t['critique']} after gen "
+                                 f"was done {st_t['gen']}")
+        saved = tel.get("prefix", {}).get("saved_tokens", 0)
+        if saved <= 0:
+            raise AssertionError(f"serve8: the prefix store saved no tokens: {tel.get('prefix')}")
+        stage_updates = [u for u in progress if u.get("update_type") == "stages"]
+        if not stage_updates or any(v["status"] != "succeeded"
+                                    for v in stage_updates[-1]["result"].values()):
+            raise AssertionError(f"serve8: the progress stream's stage updates: "
+                                 f"{stage_updates[-1:]}")
+        graph_perf = {k: v for k, v in (rec.get("perf") or {}).items()
+                      if isinstance(v, dict) and "total_s" in v}
+
+        # -- B: the ladder and the buckets; C: the monitor ------------------
+        engine.monitor.set_rules([*DEFAULT_RULES, SLORule(
+            "smoke_jobs_running", metric="jobs_running", op=">", threshold=0.5, clear=0.5,
+            for_ticks=3, clear_ticks=2, workload="batch")])
+        watch_t = threading.Thread(target=watcher, daemon=True)
+        watch_t.start()
+        rows_p1 = [text(n) for n in rng.integers(16, 257, p1_rows)]
+        rows_p0 = [text(n) for n in rng.integers(16, 257, p0_rows)]
+        t_b = time.monotonic()
+        p1 = so.infer(rows_p1, model=catalog, job_priority=1, tenant="acme", stay_attached=False,
+                      sampling_params={"temperature": 0.0, "max_new_tokens": p1_new})
+        n_calls = sum(calls[k] for k in DECODE_ENTRIES)
+        while sum(calls[k] for k in DECODE_ENTRIES) < n_calls + 2:
+            if engine.job_status(p1) not in ("QUEUED", "STARTING", "RUNNING") or (
+                    time.monotonic() - t_b > 600):
+                raise AssertionError(f"serve8: P1 did not decode: {engine.get_job(p1)}")
+            time.sleep(0.01)
+        p0 = so.infer(rows_p0, model=catalog, job_priority=0, tenant="beta", stay_attached=False,
+                      sampling_params={"temperature": 0.0, "max_new_tokens": p0_new})
+        t_refused = time.monotonic()
+        so.infer(["x"] * rows_cap, model=catalog, job_priority=0, tenant="beta",
+                 stay_attached=False, sampling_params={"temperature": 0.0, "max_new_tokens": 4})
+        refused_s = time.monotonic() - t_refused
+        refused = engine.get_job(submitted[-1])
+        if refused["status"] != "FAILED" or (refused.get("failure_reason") or {}).get(
+                "code") != "QUOTA_EXCEEDED":
+            raise AssertionError(f"serve8: the over-bucket submit ended {refused['status']}: "
+                                 f"{refused.get('failure_reason')}")
+        if so.await_job_completion(p0, obtain_results=False, timeout=1800) != p0:
+            raise AssertionError(f"serve8: P0 ended {engine.get_job(p0)}")
+        t_p0 = time.monotonic()
+        # C: the monitor mid-run, P1 still running
+        mon, deadline = None, time.monotonic() + 120
+        while True:
+            doc = so.get_monitor()
+            enf = doc.get("enforcement") or {}
+            ok = (doc["ticks"] >= 2 and doc["stats"].get("rates", {}).get("rows_per_s", 0) > 0
+                  and doc["verdicts"].get(p1, {}).get("in_flight")
+                  and enf.get("preemptions", 0) >= 1 and enf.get("rejections", 0) >= 1)
+            if ok:
+                mon = doc
+                break
+            if engine.job_status(p1) != "RUNNING" or time.monotonic() > deadline:
+                raise AssertionError(f"serve8: the monitor mid-run: ticks {doc['ticks']}, rates "
+                                     f"{doc['stats'].get('rates')}, verdicts "
+                                     f"{doc['verdicts']}, enforcement {enf}")
+            time.sleep(monitor_interval / 2)
+        if so.await_job_completion(p1, obtain_results=False, timeout=1800) != p1:
+            raise AssertionError(f"serve8: P1 ended {engine.get_job(p1)}")
+        t_p1 = time.monotonic()
+        r1 = engine.job_results(p1, include_inputs=True, include_cumulative_logprobs=True)
+        r0 = engine.job_results(p0, include_inputs=True)
+        if r1["inputs"] != rows_p1 or "errors" in r1 or not all(
+                0 <= g <= p1_new for g in r1["gen_tokens"]) or r0["inputs"] != rows_p0:
+            raise AssertionError(f"serve8: P1's or P0's results are not 1:1 with their rows: "
+                                 f"P1 errors {r1.get('errors')}, gen_tokens {r1['gen_tokens']}")
+        rec1, rec0 = engine.get_job(p1), engine.get_job(p0)
+        from datetime import datetime
+
+        if not (datetime.fromisoformat(rec0["datetime_completed"])
+                < datetime.fromisoformat(rec1["datetime_completed"])):
+            raise AssertionError(f"serve8: P0 ended {rec0['datetime_completed']}, after P1 "
+                                 f"{rec1['datetime_completed']}")
+        preempted = (so.get_job_telemetry(p1)["attrs"].get("interactive") or {}).get(
+            "preempted_rows", 0)
+        snap = engine.control.snapshot()
+        if not preempted or snap["preemptions"] != preempted or snap["rejections"] != 1:
+            raise AssertionError(f"serve8: P1 preempted {preempted}, the plane counted "
+                                 f"{snap['preemptions']} preemptions, {snap['rejections']} "
+                                 "rejections")
+        # the rule resolves a few ticks after P1 leaves the engine
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+                "firing" in watch["states"] and watch["states"][-1] == "ok"):
+            time.sleep(0.05)
+        watch["stop"] = True
+        watch_t.join(timeout=10)
+        final = engine.monitor_doc()
+        events = [e for e in final["alerts"]["events"] if e["rule"] == "smoke_jobs_running"]
+        seq = watch["states"]
+        fired = [d for d in dumps if d[1] == "smoke_jobs_running"]
+        if (seq[:1] != ["ok"] or "pending" not in seq or "firing" not in seq
+                or seq.index("pending") > seq.index("firing") or seq[-1] != "ok"
+                or [e["state"] for e in events] != ["firing", "resolved"]
+                or not any(j == p1 and ok for j, _, ok in fired)):
+            raise AssertionError(f"serve8: the smoke rule went {seq}, events {events}, "
+                                 f"dumps {fired}")
+        if engine.monitor.failed is not None or snap["degraded_reason"] is not None or not (
+                snap["enabled"]):
+            raise AssertionError(f"serve8: degraded: monitor {engine.monitor.failed}, control "
+                                 f"{snap['degraded_reason']}")
+        wall = time.monotonic() - t_start
+        launches = {k.name: k.launches for k in (*kernels, *absent)}
+
+        # -- the logits checks, on the runner with its whole head -----------
+        if head is not None:
+            with torch.no_grad():
+                head.copy_(whole)
+            del whole
+        gen_prompts = [np.asarray(x, np.int32) for x in encode_chat_batch(
+            tok, rows[:4], gen_system, mcfg.chat_template)]
+        rel = check_prefill_logits(torch, runner, gen_prompts, "serve8")
+        crit_prompts = [np.asarray(x, np.int32) for x in encode_chat_batch(
+            tok, ["critique: " + o for o in gen_out[:16]], crit_system, mcfg.chat_template)]
+        template = shared_head(crit_prompts, ecfg.kv_page_size)
+        split_checks = [check_split_decode(torch, runner, template, crit_prompts[i : i + 8], rng,
+                                           f"serve8 critique rows {i}-{i + 7}", layers=(0, 1))
+                        for i in (0, 8)]
+    finally:
+        watch["stop"] = True
+        stagegraph.StageGraphRunner._feed_rows = real_feed
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        engine.close(timeout=30)
+        engine._runner_cache.clear()
+        so._instance._engine = None
+        api.reset_engine()
+
+    def stage_rate(name):
+        s = st_t[name]
+        first = s["starved_s"] if name != "gen" else 0.0
+        return s["rows"] / max(s["done_s"] - first, 1e-9) if s["done_s"] else None
+
+    out = {
+        "card": card, "model": model, "serve_s": time.monotonic() - t_serve, "wall_s": wall,
+        "build_s": build_s, "device_info": info,
+        "graph_wall_s": graph_wall, "dry_run_cost": est, "dry_run_input_tokens": root_in + extra_in,
+        "stage_rows": want_rows,
+        "stage_times": {n: {"first_result_s": s["first_result_s"], "done_s": s["done_s"],
+                            "rows": s["rows"], "rows_per_s": stage_rate(n)}
+                        for n, s in st_t.items() if n in ("gen", "critique", "judge")},
+        "graph_tokens": {"input": rec["input_tokens"], "output": rec["output_tokens"]},
+        "graph_perf": graph_perf, "prefix_saved_tokens": saved,
+        # over the session's device calls; prompt tokens as billed (each
+        # row's shared system prompt counted)
+        "decode_tok_s": rec["output_tokens"] / graph_perf["decode"]["total_s"],
+        "prefill_tok_s": rec["input_tokens"] / graph_perf["prefill"]["total_s"],
+        "stage_updates": len(stage_updates),
+        "judge_rows_valid": len(judge_out), "elo": [json.loads(x) for x in sink],
+        "ladder": {"p1_rows": p1_rows, "p0_rows": p0_rows, "rows_suspended": preempted,
+                   "p0_wall_s": t_p0 - t_b, "p1_wall_s": t_p1 - t_b,
+                   "refused_submit_s": refused_s,
+                   "refusal": refused["failure_reason"]["message"]},
+        "monitor": {"ticks": mon["ticks"], "rates": mon["stats"].get("rates"),
+                    "verdict_p1": mon["verdicts"][p1]["verdict"],
+                    "enforcement": {k: mon["enforcement"][k]
+                                    for k in ("preemptions", "rejections", "buckets")},
+                    "smoke_rule_states": seq, "alert_events": events,
+                    "alert_dumps": [list(d) for d in fired]},
+        "prefill_rel_l2": rel,
+        "split_vs_full_rel_l2": [x[0] for x in split_checks],
+        "split_vs_full_attn_max_abs": [x[1] for x in split_checks],
+        "shared_prefix_tokens": len(template),
+        "launches": launches,
+    }
+    for k in kernels:
+        if launches[k.name] <= 0:
+            raise AssertionError(f"serve8: kernel {k.name} was not launched by the serve")
+    for k in absent:
+        if launches[k.name]:
+            raise AssertionError(f"serve8: kernel {k.name} launched {launches[k.name]} times")
+    print("serve8: " + json.dumps(out), flush=True)
+    return out
+
+
+def graphs_summary(out: dict) -> dict:
+    """Serve 8's headline figures, for a line near the end of the output."""
+    return {k: out[k] for k in ("card", "serve_s", "wall_s", "graph_wall_s", "stage_rows",
+                                "stage_times",
+                                "decode_tok_s", "prefill_tok_s", "prefix_saved_tokens",
+                                "ladder", "prefill_rel_l2", "split_vs_full_rel_l2",
+                                "launches")} | {
+        "monitor": {k: out["monitor"][k] for k in ("ticks", "rates", "verdict_p1",
+                                                   "smoke_rule_states", "alert_events")}}
+
+
 def online_summary(out: dict) -> dict:
     """Serve 7's headline figures, for a line near the end of the output."""
     pick = lambda d: {k: d.get(k) for k in ("n", "p50_s", "p99_s")}  # noqa: E731
@@ -2829,7 +3597,7 @@ def online_summary(out: dict) -> dict:
         "suspended": out["rows_suspended_for_interactive"],
         "tokens_saved": out["store"]["tokens_saved"],
         "kv_promote": out["tier"]["kv_promote"], "kv_demote": out["tier"]["kv_demote"],
-        "finishes": out["finishes_streamed_collected"],
+        "finishes": out["finishes_streamed_collected"], "monitor": out["monitor"],
     }
 
 
@@ -3156,6 +3924,11 @@ def run(torch, args, home: Path) -> int:
                     kv_write.KERNEL, prefix_carry.KERNEL, grouped_matmul.KERNEL]
     # no silent bf16 route under an int8 pool
     int8_absent = [paged_decode.KERNEL, paged_decode.CARRY, kv_write.KERNEL]
+    # serve 8: stage graphs on gpt-oss-20b run every bf16 kernel (its
+    # prefix groups the carry, rows outside them the plain decode)
+    graph_path = [flash_prefill.KERNEL, paged_decode.KERNEL, paged_decode.CARRY,
+                  prefix_carry.KERNEL, kv_write.KERNEL, grouped_matmul.KERNEL]
+    graph_absent = [paged_decode.INT8]
 
     t0 = time.monotonic()
     logs = cuda_build.build(dense_path + templated_path + int8_path)
@@ -3177,7 +3950,8 @@ def run(torch, args, home: Path) -> int:
     records = []
     rng = np.random.default_rng(1234)
     for fn in (kernel_paged_decode, kernel_kv_write, kernel_flash_prefill,
-               kernel_prefix_split, kernel_grouped_matmul, kernel_paged_decode_int8):
+               kernel_prefix_split, kernel_grouped_matmul, kernel_paged_decode_int8,
+               kernel_gpt_oss):
         recs = fn(rng, torch, dev)
         torch.cuda.empty_cache()
         for rec in recs if isinstance(recs, list) else [recs]:
@@ -3190,6 +3964,11 @@ def run(torch, args, home: Path) -> int:
                   f"cases={json.dumps(rec['cases'])} {json.dumps(extra)}", flush=True)
             records.append(rec)
     if "--kernels-only" in args:
+        print(f"card: {card}")
+        return 0
+    if "--serve8-only" in args:   # the kernel phase, then serve 8 alone
+        s8 = serve_graphs(torch, graph_path, graph_absent, card)
+        print("serve8 summary: " + json.dumps(graphs_summary(s8)))
         print(f"card: {card}")
         return 0
 
@@ -3211,6 +3990,10 @@ def run(torch, args, home: Path) -> int:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     free_card(torch, "qwen3-8b")
+    # serve 8: stage graphs, the control plane and the monitor on
+    # gpt-oss-20b (41.8 GB of weights and a 6.4 GB pool)
+    served["gpt-oss-20b graphs"] = serve_graphs(torch, graph_path, graph_absent, card)
+    free_card(torch, "gpt-oss-20b")
     # serve 6: embedding jobs through the façade, one from a dataset
     served["qwen3-emb-0.6b"] = serve_embed(torch, embed_path, embed_absent, card, home)
     # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
@@ -3252,6 +4035,7 @@ def run(torch, args, home: Path) -> int:
         })
     print(json.dumps({"kernels": kernels}))
     print("serve7 summary: " + json.dumps(online_summary(served["qwen3-8b serving"])))
+    print("serve8 summary: " + json.dumps(graphs_summary(served["gpt-oss-20b graphs"])))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -41,13 +41,18 @@ turns it off) and, with ``kv_tiers=True``, the host/disk KV tiers
 runner. ``fleet_state`` is the load report the server's
 ``/fleet-state`` frame carries.
 
+Stage graphs (a ``stages`` payload, ``engine/stagegraph.py``) run as
+one job through ``StageGraphRunner``. The live SLO monitor
+(``telemetry/monitor.py``) runs whenever telemetry is on and
+``SUTRO_MONITOR`` is not 0; the control plane (``engine/control.py``:
+per-tenant admission buckets, the preemptive priority ladder, the
+autotuner driven by the monitor's tick) whenever ``SUTRO_CONTROL`` /
+``EngineConfig.control`` resolve on.
+
 Left out (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): data-parallel engines (``SUTRO_DP_WORLD`` above 1, the
-embedding job's data-parallel branch too, ``job_fleet``), the control
-plane (``EngineConfig.control`` / ``SUTRO_CONTROL``), stage graphs (a
-``stages`` payload) and the live monitor (``monitor_doc`` raises
-``KeyError``, the reference's answer with its monitor off). Device
-traces (``profile_dir``) are not taken.
+embedding job's data-parallel branch too, ``job_fleet``). Device traces
+(``profile_dir``) are not taken.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 from .. import telemetry
+from ..telemetry import monitor as tmonitor
 from ..common import MODEL_CATALOG, read_csv_text, read_parquet_columns
 from ..interfaces import JobStatus
 from ..models.configs import MODEL_CONFIGS, ModelConfig
@@ -187,11 +193,6 @@ class LocalEngine:
         self.ecfg = ecfg or load_engine_config()
         self.device = device
         _check_dp_world()
-        # the JAX engine's enablement rule: $SUTRO_CONTROL overrides
-        # EngineConfig.control; empty/0/off/false/none mean off
-        control = os.environ.get("SUTRO_CONTROL", self.ecfg.control)
-        if str(control or "").strip().lower() not in ("", "0", "off", "false", "none"):
-            raise _not_ported("the SLO control plane", "Serving and fleet")
         # per-job fault-injection activation (EngineConfig.fault_plan or
         # SUTRO_FAULT_PLAN; None clears — a fresh engine with no plan
         # runs injection-free at zero overhead)
@@ -231,6 +232,47 @@ class LocalEngine:
             from ..serving.gateway import InteractiveGateway
 
             self.gateway = InteractiveGateway(self)
+        # Live SLO monitor (telemetry/monitor.py): per-engine sampler, so
+        # parallel engines don't share alert state. Constructed only when
+        # telemetry AND the monitor switch are on; with either off, zero
+        # threads and zero work.
+        self.monitor = None
+        if telemetry.ENABLED and tmonitor.monitor_enabled():
+            self.monitor = tmonitor.Monitor(
+                jobs_provider=self._monitor_jobs,
+                alert_dump=self._monitor_alert_dump,
+            ).start()
+        # SLO enforcement control plane (engine/control.py): per-tenant
+        # admission buckets + preemptive priority ladder + closed-loop
+        # autotuner. Constructed ONLY when SUTRO_CONTROL /
+        # EngineConfig.control resolves on — at the default None every
+        # hot path is an is-None check. A construction failure means
+        # OFF, never a broken engine.
+        self.control = None
+        from . import control as _control
+
+        _spec = _control.resolve_spec(getattr(self.ecfg, "control", None))
+        if _spec is not None:
+            try:
+                self.control = _control.ControlPlane(
+                    _spec,
+                    ecfg=self.ecfg,
+                    jobs=self.jobs,
+                    jobs_provider=self._monitor_jobs,
+                    tier_pools=self._live_kv_tiers,
+                )
+                # terminal accounting refunds the unused reserve
+                self.jobs.on_terminal = self.control.on_terminal
+                # the autotuner closes the loop off the monitor's tick
+                if self.monitor is not None:
+                    self.monitor.on_tick = self.control.on_monitor_tick
+            except Exception:  # noqa: BLE001 — enforcement is opt-in
+                # armor, never a reason the engine fails to come up
+                logger.warning(
+                    "control plane failed to construct — running "
+                    "without enforcement", exc_info=True,
+                )
+                self.control = None
         self._worker = threading.Thread(
             target=self._worker_loop, daemon=True, name="sutro-engine"
         )
@@ -260,8 +302,6 @@ class LocalEngine:
                 "inputs must be a list of strings, a dataset-<id>, or an "
                 "http(s) URL to a parquet/csv file"
             )
-        if payload.get("stages") is not None:
-            raise _not_ported("stage-graph jobs", "Serving and fleet")
         inputs = [str(x) for x in inputs]
 
         sampling = dict(payload.get("sampling_params") or {})
@@ -299,6 +339,19 @@ class LocalEngine:
         job_priority = self.jobs.validate_priority(
             payload.get("job_priority", 0)
         )
+        # Stage-graph jobs (engine/stagegraph.py): validate the DAG
+        # BEFORE any record exists — a cyclic or dangling-edge graph is
+        # a structured InvalidGraph (HTTP 400), as InvalidPriority is. A
+        # stage-less payload takes none of these branches.
+        graph = None
+        if payload.get("stages") is not None:
+            from .stagegraph import graph_cost_bounds, initial_stages_state
+            from .stagegraph import parse_graph
+
+            graph = parse_graph(
+                payload["stages"], default_model=model,
+                resolve=resolve_model,
+            )
         rec = self.jobs.create(
             name=payload.get("name"),
             description=payload.get("description"),
@@ -315,6 +368,11 @@ class LocalEngine:
                 payload.get("random_seed_per_input", False)
             ),
             tenant=tenant,
+            stages=graph.to_payload() if graph is not None else None,
+            stages_state=(
+                initial_stages_state(graph, len(inputs))
+                if graph is not None else None
+            ),
         )
         if telemetry.ENABLED:
             telemetry.job(rec.job_id).attrs["tenant"] = tenant
@@ -329,10 +387,20 @@ class LocalEngine:
         overhead = len(
             (rec.system_prompt or "").encode("utf-8")
         ) + 64  # per-row chat-template + system-prompt bound
+        overhead_extra = 0
+        if graph is not None:
+            # price the WHOLE DAG at submit: downstream map stages add
+            # their own input (bounded by upstream max_new + template
+            # overhead) and output tokens to the quota/admission draw
+            overhead_extra, extra_new = graph_cost_bounds(
+                graph, len(inputs), int(sampling["max_new_tokens"])
+            )
+            max_new_total += extra_new
         bound = (
             sum(len(r.encode("utf-8")) for r in inputs)
             + len(inputs) * overhead
             + max_new_total
+            + overhead_extra
         )
         # row quota first on its own: tokenizing cannot change a
         # row-count failure, so never pay the exact pass for one
@@ -350,7 +418,7 @@ class LocalEngine:
                         mcfg.chat_template,
                         threads=self.ecfg.tokenize_threads,
                     )
-                ) + max_new_total
+                ) + max_new_total + overhead_extra  # stage inputs: bound only
                 quota_err = self.jobs.check_quota(
                     rec.job_priority, 0, exact
                 )
@@ -364,6 +432,30 @@ class LocalEngine:
                 failure_reason={"message": quota_err},
             )
             return rec.job_id
+
+        # Control-plane admission (engine/control.py): the per-SUBMIT
+        # quota above is a size cap; this is the per-tenant sustained
+        # RATE — a token-bucket draw with bounded-wait backpressure.
+        # Dry runs cost nothing real and skip the draw.
+        if self.control is not None and not rec.dry_run:
+            admit_err = self.control.admit_batch(
+                tenant, rec.job_priority, len(inputs), float(bound),
+                job_id=rec.job_id,
+            )
+            if admit_err:
+                self.jobs.append_failure_log(
+                    rec.job_id,
+                    {"event": "admission_rejected", "error": admit_err},
+                )
+                self.jobs.set_status(
+                    rec.job_id,
+                    JobStatus.FAILED,
+                    failure_reason={
+                        "message": admit_err,
+                        "code": "QUOTA_EXCEEDED",
+                    },
+                )
+                return rec.job_id
 
         self._enqueue(rec.job_priority, rec.job_id)
         return rec.job_id
@@ -379,9 +471,12 @@ class LocalEngine:
 
     def _attach_key(self, jid: str) -> Optional[str]:
         """The engine key a queued job would attach under, or None when
-        it can never attach (different head, dry run, unresolvable).
-        Cached: the verdict is immutable per job, and this runs on the
-        scheduler loop's cadence."""
+        it can never attach (different head, dry run, stage graph,
+        unresolvable). Cached: the verdict is immutable per job, and
+        this runs on the scheduler loop's cadence. A stage-graph job
+        runs its own waves (``StageGraphRunner``); the JAX engine lets
+        it attach to a same-model session, where it would run as a
+        plain job over its inputs."""
         if jid.startswith("serve:"):
             # serving-wake sentinel (_enqueue_serving): attaches to a
             # same-key session; for any other session it reads as an
@@ -396,7 +491,7 @@ class LocalEngine:
             key, mcfg, _meta = resolve_model(rec.model)
             info = (
                 None
-                if (rec.dry_run or mcfg.head == "embedding")
+                if (rec.dry_run or rec.stages or mcfg.head == "embedding")
                 else key,
             )
         except Exception:
@@ -727,14 +822,54 @@ class LocalEngine:
             "models": models,
         }
 
+    # -- live monitor (telemetry/monitor.py) ---------------------------
+
+    def _monitor_jobs(self) -> List[Tuple[str, str]]:
+        """RUNNING jobs for the monitor's continuous doctor: the
+        worker's current job plus every co-batched attached job
+        (serve-wake sentinels excluded — the interactive tier is
+        monitored through its own histograms, not job records)."""
+        with self._lock:
+            ids = set(self._attached)
+            if self._current_job is not None:
+                ids.add(self._current_job)
+        return [
+            (jid, JobStatus.RUNNING.value)
+            for jid in sorted(ids)
+            if not jid.startswith("serve:")
+        ]
+
+    def _live_kv_tiers(self) -> List[Any]:
+        """Live tier pools for the autotuner's kv_tier_host_pages
+        actuation (pools built after a move read the knob off ecfg)."""
+        with self._lock:
+            return list(self._kv_tiers.values())
+
+    def _monitor_alert_dump(
+        self, job_id: str, alert: Dict[str, Any]
+    ) -> None:
+        """A firing alert persists the flight recorder next to the job
+        — the same ``telemetry.json`` artifact FAILED leaves, written
+        while the incident is live. Covered by the alert-dump leg of
+        the ``telemetry.monitor`` fault site."""
+        if faults.ACTIVE is not None:
+            faults.inject("telemetry.monitor", job=job_id)
+        telemetry.dump_job(self.jobs._dir(job_id), job_id)
+
     def monitor_doc(self) -> Dict[str, Any]:
-        """The ``GET /monitor`` document: the live monitor is not
-        ported, so this is the reference's answer with its monitor off
-        (``KeyError``, a 404 upstream)."""
-        raise KeyError(
-            "live monitor disabled (not ported to the CUDA engine yet: "
-            "ROADMAP.md §1, 'Serving and fleet')"
-        )
+        """The ``GET /monitor`` document (history + active alerts +
+        live doctor verdicts, and the control plane's ``enforcement``
+        section when it is on). KeyError when the monitor is disabled
+        (telemetry off or SUTRO_MONITOR=0) — the server maps it to 404."""
+        if self.monitor is None:
+            raise KeyError(
+                "live monitor disabled (SUTRO_TELEMETRY=0 or "
+                "SUTRO_MONITOR=0)"
+            )
+        doc = self.monitor.snapshot_doc()
+        if self.control is not None:
+            doc["enforcement"] = self.control.snapshot()
+        return doc
 
     def job_fleet(self, job_id: str) -> Dict[str, Any]:
         raise _not_ported("job_fleet (data-parallel engines)", "Multi-GPU")
@@ -866,10 +1001,12 @@ class LocalEngine:
         sorts ahead of every real job, so an idle worker exits
         immediately; a worker mid-job finishes that job first and the
         join may time out — the thread is daemonic either way. Returns
-        True when the worker actually exited. The prefix stores close
-        (a closed store refuses extends, so a racing session runs the
-        storeless path) and the tier pools park their migration
-        workers."""
+        True when the worker actually exited. The monitor stops, the
+        prefix stores close (a closed store refuses extends, so a racing
+        session runs the storeless path) and the tier pools park their
+        migration workers."""
+        if self.monitor is not None:
+            self.monitor.stop()
         self._queue.put(_WORKER_STOP)
         self._worker.join(timeout=timeout)
         with self._lock:
@@ -961,7 +1098,13 @@ class LocalEngine:
         self.jobs.set_status(job_id, JobStatus.STARTING)
         engine_key, mcfg, meta = resolve_model(rec.model)
         if rec.stages:
-            raise _not_ported("stage-graph jobs", "Serving and fleet")
+            # stage-graph job (engine/stagegraph.py): the whole DAG —
+            # map waves, host reduces, per-stage chunk stores, resume —
+            # runs inside the runner; same return contract as below
+            # (None, or the job's priority on yield)
+            from .stagegraph import StageGraphRunner
+
+            return StageGraphRunner(self, job_id, rec).run()
         _check_dp_world()
 
         if rec.dry_run:
@@ -1025,6 +1168,8 @@ class LocalEngine:
             prefix_store=self._prefix_store_for(engine_key),
             kv_tier=self._kv_tier_for(engine_key),
         )
+        if self.control is not None:
+            batcher.ladder = self.control.ladder
         return self._run_cobatch_session(job_id, engine_key, sess, batcher)
 
     def _run_serving_session(self, engine_key: str) -> None:
@@ -1047,6 +1192,8 @@ class LocalEngine:
             prefix_store=self._prefix_store_for(engine_key),
             kv_tier=self._kv_tier_for(engine_key),
         )
+        if self.control is not None:
+            batcher.ladder = self.control.ladder
         self._run_cobatch_session(None, engine_key, None, batcher)
 
     def _run_cobatch_session(
@@ -1492,6 +1639,7 @@ class _GenSession:
             stop_strs = []
         self.stop_strs = stop_strs
         stop_seqs = [s.encode() for s in stop_strs] or None
+        self.stop_seqs = stop_seqs
         # byte view of the vocab (probed once): the batcher needs it for
         # stop-seq detection of ANY co-batched job
         token_bytes = self.token_bytes = _token_bytes_of(tok)

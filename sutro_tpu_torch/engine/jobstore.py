@@ -167,7 +167,8 @@ class JobRecord:
     tenant: Optional[str] = None
     # per-job latency profile (engine/profiling.py StepTimer.summary())
     perf: Optional[Dict[str, Any]] = None
-    # stage-graph jobs (not ported): kept so records round-trip
+    # stage-graph jobs (engine/stagegraph.py): the validated DAG and its
+    # per-stage rollup
     stages: Optional[List[Dict[str, Any]]] = None
     stages_state: Optional[Dict[str, Any]] = None
 
@@ -753,7 +754,9 @@ class JobStore:
                 row = json.loads(line)
                 for k, v in row.items():
                     cols.setdefault(k, []).append(v)
-        return cols
+        # a job of no rows (a stage graph whose sink kept none) still
+        # has its columns, as the JAX store's empty parquet does
+        return cols or {c: [] for c in self._GEN_COLS}
 
     # -- quotas ----------------------------------------------------------
     def get_quotas(self) -> List[Dict[str, int]]:

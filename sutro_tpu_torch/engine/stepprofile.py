@@ -1,8 +1,8 @@
 """Where a decode step's time goes on the card.
 
-    python -m sutro_tpu_torch.engine.stepprofile [--model qwen3-8b|qwen3-30b-a3b|qwen3-32b|qwen3-emb-0.6b]
+    python -m sutro_tpu_torch.engine.stepprofile [--model qwen3-8b|qwen3-30b-a3b|qwen3-32b|qwen3-emb-0.6b|gpt-oss-20b]
 
-Builds one of the four engines of ``chip_smoke.py``'s serve phases
+Builds one of the five engines of ``chip_smoke.py``'s serve phases
 (:data:`ENGINES`, which the smoke test builds its engines from) with
 random weights from a seed and fills its pool, then times and profiles
 its phases:
@@ -22,7 +22,12 @@ its phases:
 - ``qwen3-emb-0.6b``: the embedding model of serve 6 at ``qwen3-8b``'s
   geometry; its one phase, ``embed``, is one ``embed_batch`` of 64 rows
   x 512 tokens (every layer's attention through flash prefill, then the
-  pooled head).
+  pooled head);
+- ``gpt-oss-20b``: the stage-graph engine of serve 8 (Dh 64, a sink and
+  a 128-token window on every other layer, 32 experts top-4 at
+  H = F = 2,880), at ``qwen3-8b``'s geometry with ``prefix_split`` and
+  a 1,024-token template as ``qwen3-30b-a3b``'s (serve 8's critique
+  prompt); the window cuts the template on the windowed layers.
 
 The phases, in this order, each after a warm-up call:
 
@@ -155,6 +160,15 @@ ENGINES = {
         dict(kv_page_size=64, max_pages_per_seq=32, decode_batch_size=64,
              max_model_len=2048, decode_multi_step=8),
         0,
+    ),
+    # the SDK's default model (serve 8's stage graphs): ~41.8 GB of bf16
+    # weights and a 6.4 GB pool; rows admit against what the pool holds
+    # (a shared prompt's pages count once there, not once a row)
+    "gpt-oss-20b": (
+        dict(kv_page_size=64, max_pages_per_seq=32, decode_batch_size=64,
+             max_model_len=2048, decode_multi_step=8, prefix_split=True,
+             max_batch_tokens=64 * 2048),
+        1024,   # serve 8's critique system prompt
     ),
 }
 

@@ -22,9 +22,11 @@ JSON (``$SUTRO_HOME/job-results/<job_id>.json``).
 engine's gateway locally (``engine_config={"interactive_slots": N}``),
 ``POST /v1/chat/completions`` remotely.
 
-Not ported yet (ROADMAP.md §1, "Serving and fleet"): ``run_graph``, and
-locally ``get_monitor`` and ``get_job_fleet`` (they raise), and the
-fleet router's getters.
+``run_graph`` submits a stage graph (``engine/stagegraph.py``) as one
+job; ``get_monitor`` reads the live SLO monitor, locally or over HTTP.
+
+Not ported yet: locally ``get_job_fleet`` (it raises; ROADMAP.md §1,
+"Multi-GPU"), and the fleet router's getters ("Serving and fleet").
 """
 
 from __future__ import annotations
@@ -301,6 +303,7 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         random_seed_per_input: bool,
         sampling_params: Optional[Dict[str, Any]],
         tenant: Optional[str] = None,
+        stages: Optional[List[Dict[str, Any]]] = None,
     ) -> Any:
         if name and len(name) > MAX_NAME_LENGTH:
             raise ValueError(
@@ -326,6 +329,10 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
             "sampling_params": sampling_params,
             "tenant": tenant,
         }
+        if stages is not None:
+            # key only present for stage-graph jobs: a plain submit's
+            # wire payload stays byte-identical
+            payload["stages"] = stages
         if self.backend == "remote":
             resp = self.do_request("post", "batch-inference", json=payload)
             if resp.status_code == 400:
@@ -340,7 +347,18 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
 
                     hi = (err.get("valid_range") or [0, 0])[1]
                     raise InvalidPriority(err.get("priority"), hi + 1)
-            resp.raise_for_status()
+                if err.get("code") == "INVALID_GRAPH":
+                    # one exception shape for both backends
+                    from .engine.stagegraph import InvalidGraph
+
+                    raise InvalidGraph(
+                        err.get("reason") or "invalid",
+                        err.get("message") or "invalid stage graph",
+                    )
+            if resp.status_code != 429:
+                resp.raise_for_status()
+            # a 429 (the control plane refused the submit) carries the
+            # FAILED job's id, as the local backend returns it
             job_id = resp.json()["results"]
         else:
             job_id = self.engine.submit_batch_inference(payload)
@@ -403,6 +421,25 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         total = rec.get("num_rows", 0) or 0
         pbar = fancy_tqdm(total=total, desc="Rows", color="blue")
         token_state: Dict[str, Any] = {}
+        stage_state: Dict[str, Any] = {}
+
+        def postfix() -> None:
+            parts = []
+            tps = token_state.get("total_tokens_processed_per_second")
+            if tps is not None:
+                parts.append(f"{tps:,.0f} tok/s")
+            if stage_state:
+                # per-stage rollup (stage-graph jobs): gen 12/50 ...
+                parts.append(
+                    " ".join(
+                        f"{n} {s.get('rows_done', 0)}/"
+                        f"{s.get('rows_total', 0)}"
+                        for n, s in stage_state.items()
+                    )
+                )
+            if parts:
+                pbar.set_postfix_str(" | ".join(parts))
+
         try:
             for update in self._iter_progress(job_id):
                 if update.get("update_type") == "progress":
@@ -411,9 +448,15 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
                 elif update.get("update_type") == "tokens":
                     # partial dicts merge monotonically
                     token_state.update(update.get("result") or {})
-                    tps = token_state.get("total_tokens_processed_per_second")
-                    if tps is not None:
-                        pbar.set_postfix_str(f"{tps:,.0f} tok/s")
+                    postfix()
+                elif update.get("update_type") == "stages":
+                    # conflating per-stage counters (the stage_progress
+                    # frame): latest rollup wins; a tolerant parse, so a
+                    # newer engine's extra keys never break the bar
+                    from .engine.stageframes import parse_stage_progress
+
+                    stage_state.update(parse_stage_progress(update) or {})
+                    postfix()
         finally:
             pbar.close()
 
@@ -648,10 +691,72 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
             tenant=tenant,
         )
 
-    def run_graph(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            "stage-graph jobs are not ported to the CUDA engine yet "
-            "(ROADMAP.md §1, 'Serving and fleet')"
+    def run_graph(
+        self,
+        data: Any,
+        stages: List[Dict[str, Any]],
+        model: ModelOptions = "gpt-oss-20b",
+        column: Optional[Union[str, List[Any]]] = None,
+        output_column: str = "inference_result",
+        job_priority: int = 0,
+        name: Optional[str] = None,
+        description: Optional[str] = None,
+        dry_run: bool = False,
+        stay_attached: Optional[bool] = None,
+        truncate_rows: bool = True,
+        sampling_params: Optional[Dict[str, Any]] = None,
+        tenant: Optional[str] = None,
+    ) -> Any:
+        """Submit a stage-graph job: a small DAG of stages executed
+        entirely server-side as ONE job (``engine/stagegraph.py``).
+
+        ``stages`` is a list of stage dicts — ``map`` stages carry
+        per-stage ``model`` / ``system_prompt`` / ``prompt_template``
+        (must contain ``{input}``) / ``output_schema`` /
+        ``sampling_params``; ``filter`` / ``elo`` / ``pair`` stages are
+        host-side reduces over their upstream stage. Edges are named in
+        ``after``; the single sink stage's rows become the job's
+        results. Rows stream between stages inside the engine, the whole
+        DAG is priced and quota-checked at submit, and an invalid graph
+        raises a structured ``InvalidGraph`` (HTTP 400 ``INVALID_GRAPH``
+        for remote backends).
+
+        Example — rank + ELO in one submit::
+
+            so.run_graph(rows, stages=[
+                {"name": "rank", "kind": "map",
+                 "system_prompt": "You are an expert evaluator...",
+                 "output_schema": {...}},
+                {"name": "elo", "kind": "elo", "after": ["rank"]},
+            ])
+        """
+        if stay_attached is None:
+            stay_attached = job_priority == 0
+        norm = []
+        for s in stages:
+            s = dict(s) if isinstance(s, dict) else s
+            if isinstance(s, dict) and s.get("output_schema") is not None:
+                s["output_schema"] = normalize_output_schema(
+                    s["output_schema"]
+                )
+            norm.append(s)
+        return self._run_one_batch_inference(
+            data=data,
+            model=model,
+            column=column,
+            output_column=output_column,
+            job_priority=job_priority,
+            output_schema=None,
+            system_prompt=None,
+            name=name,
+            description=description,
+            dry_run=dry_run,
+            stay_attached=stay_attached,
+            truncate_rows=truncate_rows,
+            random_seed_per_input=False,
+            sampling_params=sampling_params,
+            tenant=tenant,
+            stages=norm,
         )
 
     def infer_per_model(
@@ -857,14 +962,17 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         return self.engine.job_fleet(job_id)
 
     def get_monitor(self) -> Dict[str, Any]:
-        """The live SLO monitor's document (``GET /monitor``) of a
-        remote server that has one; the CUDA engine's is not ported."""
+        """The live SLO monitor's consolidated document: windowed rates
+        and p50/p99 percentiles, per-tenant attribution, SLO rule
+        states, the active/recent alert events, the in-flight doctor
+        verdicts for running jobs, the tick history trail, and the
+        control plane's ``enforcement`` section when it is on. Both
+        backends (the remote server serves it as ``GET /monitor``);
+        raises ``KeyError`` locally / 404 remotely when the monitor is
+        disabled (``SUTRO_TELEMETRY=0`` or ``SUTRO_MONITOR=0``)."""
         if self.backend == "remote":
             return self._remote_json("get", "monitor")["monitor"]
-        raise NotImplementedError(
-            "the live SLO monitor is not ported to the CUDA engine yet "
-            "(ROADMAP.md §1, 'Serving and fleet')"
-        )
+        return self.engine.monitor_doc()
 
     def get_metrics_text(self) -> str:
         """Engine metrics registry in Prometheus text exposition

@@ -28,13 +28,21 @@ Endpoints: POST /batch-inference, GET /stream-job-progress/{id}
 GET /try-authentication, GET /get-quotas, POST /functions/run; the
 interactive tier's POST /v1/chat/completions and /v1/completions (SSE
 or collected); GET /metrics (Prometheus text), /job-telemetry/{id},
-/job-doctor/{id}, /trace/{id}; the fleet frames GET /fleet-state, POST
-/fleet-warm, GET /metrics-snapshot, GET /trace-doc/{id}; GET /healthz.
+/job-doctor/{id}, /trace/{id}; GET /monitor (the live SLO monitor's
+document, with the control plane's ``enforcement`` section when it is
+on) and GET /monitor/stream (NDJSON, one record per sampler tick;
+``?ticks=N`` bounds it), both 404 when the monitor is disabled; the
+fleet frames GET /fleet-state, POST /fleet-warm, GET /metrics-snapshot,
+GET /trace-doc/{id}; GET /healthz.
 
-Not ported yet (ROADMAP.md §1, "Serving and fleet"): GET /monitor and
-/monitor/stream answer 404 "disabled", as the reference does with its
-monitor off; GET /job-fleet/{id} and a ``stages`` payload answer 501
-with the engine's not-ported error.
+A ``stages`` payload on POST /batch-inference submits a stage graph; an
+invalid graph is a 400 with ``code: INVALID_GRAPH`` and a ``reason``. A
+batch submit the control plane refuses answers 429 with ``code:
+QUOTA_EXCEEDED`` and the FAILED job's id in ``results`` (the JAX server
+answers 200 with the id; both leave the same FAILED record).
+
+Not ported yet (ROADMAP.md §1, "Multi-GPU"): GET /job-fleet/{id}
+answers 501 with the engine's not-ported error.
 """
 
 from __future__ import annotations
@@ -225,10 +233,10 @@ class EngineHTTPHandler(BaseHTTPRequestHandler):
                 self._json(eng.get_trace(rest))
             elif head == "job-fleet" and rest:
                 self._json({"fleet": eng.job_fleet(rest)})
-            elif head == "monitor" and rest in (None, "stream"):
-                # the live monitor is not ported: monitor_doc raises
-                # KeyError, the 404 arm below, as the reference answers
-                # with its monitor off
+            elif head == "monitor" and rest == "stream":
+                self._stream_monitor()
+            elif head == "monitor" and rest is None:
+                # monitor disabled -> KeyError -> the 404 arm below
                 self._json({"monitor": eng.monitor_doc()})
             elif head == "healthz":
                 self._healthz()
@@ -262,11 +270,23 @@ class EngineHTTPHandler(BaseHTTPRequestHandler):
                 self._serve_openai(chat=False)
             elif head == "batch-inference":
                 from .engine.jobstore import InvalidPriority
+                from .engine.stagegraph import InvalidGraph
 
                 payload = self._read_json()
                 try:
+                    self._submit_batch(payload)
+                except InvalidGraph as e:
+                    # a cyclic or dangling-edge DAG is a caller error
+                    # with a machine-readable reason, never a 500
                     self._json(
-                        {"results": eng.submit_batch_inference(payload)}
+                        {
+                            "error": {
+                                "message": str(e),
+                                "code": e.code,
+                                "reason": e.reason,
+                            }
+                        },
+                        status=e.status,
                     )
                 except InvalidPriority as e:
                     # structured 400: the SDK surfaces code + valid
@@ -339,6 +359,77 @@ class EngineHTTPHandler(BaseHTTPRequestHandler):
             self._error(500, f"{type(e).__name__}: {e}")
 
     # -- endpoint bodies ----------------------------------------------
+
+    def _submit_batch(self, payload: Dict[str, Any]) -> None:
+        """POST /batch-inference: the job id in ``results``; a submit
+        the control plane refused (its job FAILED at submit with code
+        QUOTA_EXCEEDED) answers 429 with the id and the structured
+        error."""
+        job_id = self.engine.submit_batch_inference(payload)
+        from .engine.control import QUOTA_EXCEEDED
+
+        reason = None
+        if self.engine.control is not None:
+            rec = self.engine.jobs.get(job_id)
+            if rec.status == JobStatus.FAILED.value:
+                reason = rec.failure_reason or {}
+        if reason and reason.get("code") == QUOTA_EXCEEDED:
+            self._json(
+                {
+                    "results": job_id,
+                    "error": {
+                        "message": reason.get("message"),
+                        "code": QUOTA_EXCEEDED,
+                    },
+                },
+                status=429,
+            )
+            return
+        self._json({"results": job_id})
+
+    def _stream_monitor(self) -> None:
+        """NDJSON live-monitor stream (chunked): one record per sampler
+        tick (telemetry/monitor.py ``Monitor.stream``), same transfer
+        mechanics as ``_stream_progress``. ``?ticks=N`` bounds the
+        stream; unbounded streams end when the monitor stops or the
+        client detaches."""
+        mon = getattr(self.engine, "monitor", None)
+        if mon is None:
+            self._error(
+                404,
+                "live monitor disabled (SUTRO_TELEMETRY=0 or "
+                "SUTRO_MONITOR=0)",
+            )
+            return
+        max_ticks: Optional[int] = None
+        q = self.path.partition("?")[2]
+        for kv in q.split("&"):
+            k, _, v = kv.partition("=")
+            if k == "ticks" and v.isdigit():
+                max_ticks = int(v)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        def send_chunk(obj: Dict[str, Any]) -> None:
+            line = (json.dumps(obj) + "\n").encode()
+            self.wfile.write(f"{len(line):X}\r\n".encode() + line + b"\r\n")
+            self.wfile.flush()
+
+        try:
+            for rec in mon.stream(max_ticks=max_ticks):
+                send_chunk(rec)
+        except (BrokenPipeError, ConnectionResetError):
+            return  # client detached — the monitor keeps sampling
+        except Exception:  # noqa: BLE001 — headers already sent; end
+            # the chunked body cleanly instead of corrupting it
+            logger.warning("monitor stream aborted", exc_info=True)
+        try:
+            send_chunk({"t": "end", "degraded": mon.failed})
+            self.wfile.write(b"0\r\n\r\n")
+        except (BrokenPipeError, ConnectionResetError):
+            pass
 
     def _is_draining(self) -> bool:
         gw = getattr(self.engine, "gateway", None)

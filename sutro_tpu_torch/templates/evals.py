@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import json
 import sys
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -221,77 +221,98 @@ class Rank(BaseSutroClient):
         iterations: int = 100,
         smoothing: float = 0.1,
     ) -> "pd.DataFrame":
-        """Aggregate per-row rankings into Elo ratings via Bradley–Terry.
-
-        Each ranking is a list of labels best-to-worst; an element may be a
-        list of labels to denote a tie group (reference evals.py:225-247).
-        Strengths are fit with Hunter's (2004) MM algorithm with Laplace
-        smoothing (evals.py:296-308), then mapped to Elo as
-        ``base + (400/ln 10) * ln(strength)`` (evals.py:311-313)."""
+        """Aggregate per-row rankings into Elo ratings via Bradley–Terry
+        (``elo_fit``), as a DataFrame with columns ``player``, ``elo``
+        and ``strength``, best first."""
         import pandas as pd
 
-        wins: Dict[tuple, float] = {}
-        players: List[str] = []
-
-        def see(p: str) -> None:
-            if p not in players:
-                players.append(p)
-
-        for ranking in rankings:
-            if isinstance(ranking, str):
-                try:
-                    ranking = json.loads(ranking)
-                except Exception:
-                    continue
-            groups: List[List[str]] = []
-            for item in ranking:
-                group = [item] if isinstance(item, str) else list(item)
-                for p in group:
-                    see(p)
-                groups.append(group)
-            for gi, g in enumerate(groups):
-                for gj in range(gi + 1, len(groups)):
-                    for a in g:
-                        for b in groups[gj]:
-                            wins[(a, b)] = wins.get((a, b), 0.0) + 1.0
-                # ties within a group: half-win each way
-                for ai, a in enumerate(g):
-                    for b in g[ai + 1 :]:
-                        wins[(a, b)] = wins.get((a, b), 0.0) + 0.5
-                        wins[(b, a)] = wins.get((b, a), 0.0) + 0.5
-
-        n = len(players)
-        if n == 0:
-            return pd.DataFrame(columns=["player", "elo", "strength"])
-        idx = {p: i for i, p in enumerate(players)}
-        W = np.full((n, n), smoothing)
-        np.fill_diagonal(W, 0.0)
-        for (a, b), w in wins.items():
-            W[idx[a], idx[b]] += w
-
-        # Hunter (2004) MM updates: p_i <- sum_j w_ij / sum_j (n_ij/(p_i+p_j))
-        p = np.ones(n)
-        total_wins = W.sum(axis=1)
-        N = W + W.T
-        for _ in range(iterations):
-            denom = (N / (p[:, None] + p[None, :] + 1e-12)).sum(axis=1)
-            p_new = total_wins / np.maximum(denom, 1e-12)
-            p_new = p_new / np.exp(np.mean(np.log(p_new + 1e-12)))
-            if np.max(np.abs(p_new - p)) < 1e-10:
-                p = p_new
-                break
-            p = p_new
-
-        elo = base_rating + (k / np.log(10.0)) * np.log(p + 1e-12)
-        # deterministic tie-break: equal ratings order by player name —
-        # first-seen insertion order varied across pandas sort
-        # implementations, which made equal-win tables flap between runs
-        df = pd.DataFrame(
-            {"player": players, "elo": elo, "strength": p}
-        ).sort_values(
-            ["elo", "player"], ascending=[False, True], ignore_index=True
+        players, elo, strength = elo_fit(
+            rankings, k=k, base_rating=base_rating,
+            iterations=iterations, smoothing=smoothing,
         )
-        return df
+        if not players:
+            return pd.DataFrame(columns=["player", "elo", "strength"])
+        return pd.DataFrame(
+            {"player": players, "elo": elo, "strength": strength}
+        )
+
+
+def elo_fit(
+    rankings: Sequence[Union[str, Sequence[Union[str, Sequence[str]]]]],
+    k: float = 400.0,
+    base_rating: float = 1500.0,
+    iterations: int = 100,
+    smoothing: float = 0.1,
+) -> Tuple[List[str], List[float], List[float]]:
+    """The Bradley–Terry fit behind ``Rank.elo``, without pandas:
+    ``(players, elo, strength)`` lists, best first.
+
+    Each ranking is a list of labels best-to-worst; an element may be a
+    list of labels to denote a tie group (reference evals.py:225-247).
+    Strengths are fit with Hunter's (2004) MM algorithm with Laplace
+    smoothing (evals.py:296-308), then mapped to Elo as
+    ``base + (400/ln 10) * ln(strength)`` (evals.py:311-313). Equal
+    ratings order by player name."""
+    wins: Dict[tuple, float] = {}
+    players: List[str] = []
+
+    def see(p: str) -> None:
+        if p not in players:
+            players.append(p)
+
+    for ranking in rankings:
+        if isinstance(ranking, str):
+            try:
+                ranking = json.loads(ranking)
+            except Exception:
+                continue
+        groups: List[List[str]] = []
+        for item in ranking:
+            group = [item] if isinstance(item, str) else list(item)
+            for p in group:
+                see(p)
+            groups.append(group)
+        for gi, g in enumerate(groups):
+            for gj in range(gi + 1, len(groups)):
+                for a in g:
+                    for b in groups[gj]:
+                        wins[(a, b)] = wins.get((a, b), 0.0) + 1.0
+            # ties within a group: half-win each way
+            for ai, a in enumerate(g):
+                for b in g[ai + 1 :]:
+                    wins[(a, b)] = wins.get((a, b), 0.0) + 0.5
+                    wins[(b, a)] = wins.get((b, a), 0.0) + 0.5
+
+    n = len(players)
+    if n == 0:
+        return [], [], []
+    idx = {p: i for i, p in enumerate(players)}
+    W = np.full((n, n), smoothing)
+    np.fill_diagonal(W, 0.0)
+    for (a, b), w in wins.items():
+        W[idx[a], idx[b]] += w
+
+    # Hunter (2004) MM updates: p_i <- sum_j w_ij / sum_j (n_ij/(p_i+p_j))
+    p = np.ones(n)
+    total_wins = W.sum(axis=1)
+    N = W + W.T
+    for _ in range(iterations):
+        denom = (N / (p[:, None] + p[None, :] + 1e-12)).sum(axis=1)
+        p_new = total_wins / np.maximum(denom, 1e-12)
+        p_new = p_new / np.exp(np.mean(np.log(p_new + 1e-12)))
+        if np.max(np.abs(p_new - p)) < 1e-10:
+            p = p_new
+            break
+        p = p_new
+
+    elo = base_rating + (k / np.log(10.0)) * np.log(p + 1e-12)
+    # deterministic tie-break: equal ratings order by player name
+    order = sorted(range(n), key=lambda i: (-float(elo[i]), players[i]))
+    return (
+        [players[i] for i in order],
+        [float(elo[i]) for i in order],
+        [float(p[i]) for i in order],
+    )
 
 
 class EvalTemplates(Score, Rank):

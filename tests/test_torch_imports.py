@@ -12,7 +12,11 @@
   and a job reads its rows from a CSV dataset;
 - with the same packages blocked, the server (``server.py``) answers a
   remote-backend ``Sutro`` job and a chat request, ``so.chat`` runs on
-  the local gateway, and the KV tier demotes and promotes.
+  the local gateway, and the KV tier demotes and promotes;
+- with the same packages blocked, a stage graph with an ELO sink runs
+  through ``so.run_graph`` on an engine with the control plane and the
+  live monitor on, ``so.get_monitor`` reads the monitor and its
+  ``enforcement`` section, and ``GET /monitor/stream`` streams ticks.
 """
 
 import ast
@@ -76,6 +80,10 @@ MODULES = (
     "sutro_tpu_torch.serving.gateway",
     "sutro_tpu_torch.fleet.frames",
     "sutro_tpu_torch.server",
+    "sutro_tpu_torch.engine.softdeadline",
+    "sutro_tpu_torch.engine.control",
+    "sutro_tpu_torch.engine.stagegraph",
+    "sutro_tpu_torch.telemetry.monitor",
 )
 
 
@@ -193,6 +201,52 @@ def test_serving_and_the_remote_sdk_run_without_the_card_machines_missing_packag
     )
     assert out.returncode == 0, out.stderr
     assert "SERVE_OK" in out.stdout
+
+
+def test_stage_graphs_control_and_monitor_run_without_the_card_machines_missing_packages(
+        tmp_path):
+    code = (
+        "import sys, json\n"
+        f"for m in {FORBIDDEN + ABSENT_ON_CARD!r}:\n"
+        "    sys.modules[m] = None\n"
+        "from sutro_tpu_torch.engine.api import get_engine\n"
+        "from sutro_tpu_torch.engine.config import EngineConfig\n"
+        "from sutro_tpu_torch.server import start_server_thread\n"
+        "eng = get_engine(EngineConfig(kv_page_size=8, max_pages_per_seq=16,\n"
+        "    decode_batch_size=2, max_model_len=128, param_dtype='float32',\n"
+        "    control='rows=100,wait=0.5'), device='cpu')\n"
+        "import sutro_tpu_torch as so\n"
+        "stages = [{'name': 'gen', 'kind': 'map', 'sampling_params': {'max_new_tokens': 4}},\n"
+        "    {'name': 'pairs', 'kind': 'pair', 'after': ['gen']},\n"
+        "    {'name': 'judge', 'kind': 'map', 'after': ['pairs'],\n"
+        "     'sampling_params': {'max_new_tokens': 2}},\n"
+        "    {'name': 'elo', 'kind': 'elo', 'after': ['judge']}]\n"
+        "jid = so.run_graph(['a', 'b', 'c'], stages=stages, model='tiny-dense',\n"
+        "    stay_attached=False, tenant='acme', sampling_params={'temperature': 0.0})\n"
+        "assert so.await_job_completion(jid, obtain_results=False) == jid\n"
+        "state = eng.get_job(jid)['stages_state']\n"
+        "assert all(v['status'] == 'succeeded' for v in state.values()), state\n"
+        "assert state['judge']['rows_done'] == 3, state\n"
+        "doc = so.get_monitor()\n"
+        "assert doc['enabled'] and doc['enforcement']['buckets']['acme/p0'], doc\n"
+        "srv, thread, url = start_server_thread(eng)\n"
+        "from urllib.request import urlopen\n"
+        "body = urlopen(url + '/monitor/stream?ticks=1', timeout=30).read().decode()\n"
+        "assert [json.loads(x)['t'] for x in body.splitlines()] == ['tick', 'end'], body\n"
+        "srv.shutdown()\n"
+        "assert eng.close()\n"
+        "for m in " + repr(ABSENT_ON_CARD) + ":\n"
+        "    assert sys.modules[m] is None, m\n"
+        "print('GRAPH_OK')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "SUTRO_HOME": str(tmp_path / "home"),
+           "SUTRO_MONITOR": "1", "SUTRO_MONITOR_INTERVAL": "0.1"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "GRAPH_OK" in out.stdout
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

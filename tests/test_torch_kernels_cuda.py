@@ -28,13 +28,19 @@ to bf16 for the value product in the attention kernels.
   rows past the last group (which must be zero), M from 1 row to a few
   decode rows and across a row tile, H and F not multiples of the tiles,
   and Qwen3-30B-A3B's expert widths (gate/up and down) from a few decode
-  rows to a prefill's 32,768;
+  rows to a prefill's 32,768, and gpt-oss-20b's (32 experts at H = F =
+  2,880, 22.5 tiles of 128: a tail on every K and N) at a decode step's
+  256, 4,000 and 16,000 rows, gate/up and down;
 - the KV page write (bit-exact: it only copies): tokens bound for page
   0 and past the table's end (dropped), a chunk of a pool's layers
   written through a slice, padding rows, a prefill chunk, a full decode
   window written as one call, and a speculative window's commit with
   per-row accepted counts of 0, of 1 < a < steps and of steps in one
   call, at Qwen3-8B's and Qwen3-30B-A3B's widths;
+- gpt-oss-20b's attention (64 query heads over 8 KV heads of 64): the
+  prefix carry over 16 shared pages, and the paged decode started from
+  it with the sink, against the plain decode over the full table, with
+  no window and with the 128-token window that cuts the prefix;
 - the combinations each wrapper refuses raise.
 """
 
@@ -338,6 +344,47 @@ def test_prefix_carry_matches_plain(dev, Dh, G, n_pages):
         assert (got[1][outside] == 0).all() and (got[2][outside] == 0).all()
 
 
+@pytest.mark.parametrize("window", [0, 128])
+def test_gpt_oss_carry_then_decode_matches_plain_full_table(dev, window):
+    """gpt-oss-20b's heads behind 16 shared pages (1,024 tokens): the
+    carry kernel, then the decode kernel started from it with the sink
+    and a fused window's slots, equal the plain decode over each row's
+    whole table. The 128-token window cuts the prefix, so a member's
+    carry holds its last tokens or nothing."""
+    B, NH, KVH, Dh, n_pfx = 64, 64, 8, 64, 16
+    rng = np.random.default_rng(20 + window)
+    member = np.arange(B) % 8 != 7
+    past = np.where(member, n_pfx * PS + rng.integers(1, 300, B), rng.integers(0, 300, B))
+    n_pool = 1 + n_pfx + int(sum(-(-int(p) // PS) for p in past))
+    table = np.zeros((B, 32), np.int32)
+    nxt = 1 + n_pfx
+    for b in range(B):
+        head = n_pfx if member[b] else 0
+        table[b, :head] = np.arange(1, 1 + head)
+        n = -(-int(past[b]) // PS) - head
+        table[b, head : head + n] = np.arange(nxt, nxt + n)
+        nxt += n
+    g = torch.Generator(device=dev).manual_seed(window)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    KD = KVH * Dh
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    q = torch.randn((B, NH, Dh), **bf)
+    k_pages, v_pages = (torch.randn((n_pool, PS, KD), **bf) for _ in range(2))
+    args = (q, k_pages, v_pages, i32(table), i32(past), torch.randn((B, KVH, Dh), **bf),
+            torch.randn((B, KVH, Dh), **bf))
+    kw = dict(window=window, sink=torch.randn((NH,), device=dev, generator=g),
+              win_k=torch.randn((B, 8, KD), **bf), win_v=torch.randn((B, 8, KD), **bf),
+              win_len=4)
+    m0, l0, acc0 = pc.prefix_attention_carry(
+        q, k_pages, v_pages, i32(np.arange(1, 1 + n_pfx)),
+        i32(np.where(member, n_pfx * PS, 0)), i32(past + 4), window)
+    got = pd.paged_decode_attention(*args, **kw, pfx_cnt=i32(np.where(member, n_pfx, 0)),
+                                    m0=m0, l0=l0, acc0=acc0)
+    want = pd.paged_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
 def test_prefix_carry_refuses(dev):
     x, _ = _carry_case(dev, 64, 4, 1, seed=5)
     args = [x["q"], x["k_pages"], x["v_pages"], x["pfx_pages"], x["pfx_len"], x["q_pos"]]
@@ -391,6 +438,12 @@ def _gmm_cases():
         "qwen3_30b_gate_M32768": (128, 2048, 768, 32768, 0),
         "qwen3_30b_down_M512": (128, 768, 2048, 512, 0),
         "qwen3_30b_down_M16384": (128, 768, 2048, 16384, 0),
+        "gpt_oss_gate_M256": (32, 2880, 2880, 256, 0),
+        "gpt_oss_gate_M4000": (32, 2880, 2880, 4000, 0),
+        "gpt_oss_gate_M16000": (32, 2880, 2880, 16000, 0),
+        "gpt_oss_down_M256_past_groups": (32, 2880, 2880, 256, 40),
+        "gpt_oss_down_M4000": (32, 2880, 2880, 4000, 0),
+        "gpt_oss_down_M16000": (32, 2880, 2880, 16000, 0),
     }
 
 

@@ -192,31 +192,47 @@ def test_common_helpers_match():
 
 
 def test_what_is_not_ported_is_refused(clients, monkeypatch):
-    """Stage graphs, the control plane, data-parallel engines, the live
-    monitor and the fleet view raise; the remote backend and the
-    serving tier (ported since) do not."""
-    _, c = clients
+    """Data-parallel engines and the fleet view raise; the remote
+    backend, the serving tier, stage graphs, the control plane and the
+    live monitor (ported since) answer as the JAX package's do."""
+    from sutro_tpu.engine.stagegraph import InvalidGraph as JaxInvalidGraph
+    from sutro_tpu_torch.engine.stagegraph import InvalidGraph
+
+    jc, c = clients
     for backend in ("remote", "fleet"):
         assert Sutro(backend=backend).backend == "remote"
     with pytest.raises(ValueError):
         Sutro(backend="tcp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # stage graphs: the same typed refusal of a bad graph, and a good
+    # one runs to its sink
+    with pytest.raises(InvalidGraph) as got:
         so.run_graph(TEXTS, stages=[])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.engine.submit_batch_inference({"model": "tiny-dense", "inputs": TEXTS,
-                                         "stages": [{"name": "a"}]})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.LocalEngine(EngineConfig(control="rows=2"), device="cpu")
+    with pytest.raises(JaxInvalidGraph) as want:
+        jso.run_graph(TEXTS, stages=[])
+    assert (got.value.reason, str(got.value)) == (want.value.reason, str(want.value))
+    jid = c.engine.submit_batch_inference({"model": "tiny-dense", "inputs": TEXTS,
+                                           "stages": [{"name": "a"}],
+                                           "sampling_params": {"max_new_tokens": 2}})
+    assert c.await_job_completion(jid, obtain_results=False) == jid
+    assert len(c.engine.job_results(jid)["outputs"]) == len(TEXTS)
+    # the control plane: built when asked for
+    eng = api.LocalEngine(EngineConfig(control="rows=2"), device="cpu")
+    try:
+        assert eng.control is not None and eng.control.cfg.rows == 2.0
+    finally:
+        assert eng.close(timeout=30)
     monkeypatch.setenv("SUTRO_DP_WORLD", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.LocalEngine(EngineConfig(), device="cpu")
     monkeypatch.delenv("SUTRO_DP_WORLD")
-    for call in (lambda: c.engine.job_fleet("job-x"), lambda: c.get_job_fleet("job-x"),
-                 c.get_monitor):
+    for call in (lambda: c.engine.job_fleet("job-x"), lambda: c.get_job_fleet("job-x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    with pytest.raises(KeyError, match="disabled"):
-        c.engine.monitor_doc()
+    # the monitor is off in this module (SUTRO_MONITOR=0): both engines
+    # refuse the same way
+    for client in (c, jc):
+        with pytest.raises(KeyError, match="disabled"):
+            client.get_monitor()
     eng = api.LocalEngine(EngineConfig(interactive_slots=1), device="cpu")
     try:
         assert eng.gateway is not None

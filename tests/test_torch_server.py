@@ -9,11 +9,11 @@ submit, detach and results, the NDJSON progress records with their end
 record, the job list and status, the cancel of a queued job, datasets
 (multipart upload, list, download), ``/functions/run``,
 ``/fleet-state``, ``/fleet-warm``, ``/v1/chat/completions`` and
-``/v1/completions`` collected, the typed ``InvalidPriority`` 400, and a
-404 on an unknown route. The port answers the routes it has not ported
-(``/monitor``, ``/job-fleet``, a ``stages`` payload) as the contract
-says, and ``_graceful_shutdown`` refuses new requests with a 503 while
-a stream finishes.
+``/v1/completions`` collected, the typed ``InvalidPriority`` 400, a
+404 on an unknown route, ``/monitor`` with the monitor off and a bad
+``stages`` payload. The port refuses ``/job-fleet`` (not ported) with a
+501, and ``_graceful_shutdown`` refuses new requests with a 503 while a
+stream finishes.
 """
 
 import json
@@ -235,15 +235,24 @@ def test_openai_routes_and_fleet_frames(served):
 
 
 def test_what_the_port_has_not_ported(served):
+    """Only ``/job-fleet`` is refused (501). With the monitor off (as in
+    this module) both servers answer ``/monitor`` 404; a ``stages``
+    payload is a stage-graph job, and a bad one the same 400."""
     eng, url = served["port"]
-    status, body = _req(f"{url}/monitor")
-    assert status == 404 and "disabled" in body["detail"]
-    assert _req(f"{url}/monitor/stream")[0] == 404
+    jurl = served["jax"][1]
+    for path in ("monitor", "monitor/stream"):
+        (status, body), (jstatus, jbody) = (_req(f"{u}/{path}") for u in (url, jurl))
+        assert status == jstatus == 404 and "disabled" in body["detail"]
     status, body = _req(f"{url}/job-fleet/job-0000000000000000")
     assert status == 501 and "ROADMAP" in body["detail"]
+    bad = {"model": "tiny-dense", "inputs": ROWS, "stages": [{"name": "a", "after": ["b"]}]}
+    assert _req(f"{url}/batch-inference", "POST", bad) == _req(f"{jurl}/batch-inference",
+                                                                "POST", bad)
     status, body = _req(f"{url}/batch-inference", "POST",
-                        {"model": "tiny-dense", "inputs": ROWS, "stages": [{"name": "a"}]})
-    assert status == 501 and "ROADMAP" in body["detail"]
+                        {"model": "tiny-dense", "inputs": ROWS, "stages": [{"name": "a"}],
+                         "sampling_params": {"max_new_tokens": 2}})
+    assert status == 200
+    assert wait(eng, body["results"]) == "SUCCEEDED"
 
 
 def test_graceful_shutdown_refuses_new_requests_and_finishes_streams(served):
@@ -288,6 +297,8 @@ def test_smoke_serve7_runs_at_a_tiny_size(tmp_path, monkeypatch):
     from sutro_tpu_torch.models.configs import MODEL_CONFIGS
 
     monkeypatch.setenv("SUTRO_HOME", str(tmp_path / "home"))
+    # serve 7 reads the live monitor, which this module's engines run without
+    monkeypatch.setenv("SUTRO_MONITOR", "1")
     mcfg = MODEL_CONFIGS["tiny-dense"]
     geometry = dict(kv_page_size=8, max_pages_per_seq=128, decode_batch_size=8,
                     max_model_len=1024, decode_multi_step=4, param_dtype="float32",
