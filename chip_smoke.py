@@ -122,7 +122,31 @@ Phases, in order; any failure raises and exits non-zero:
    interactive requests, the store's hits and tokens saved and the
    tier's operations, bytes and host time, and a ``serve7 summary``
    line after the ``kernels`` line;
-7. serve 8, after serve 7's engine is closed: stage graphs, the control
+7. serve 9, after serve 7's engine is closed, on the same checkpoint:
+   the replica fleet (``serve_fleet``). Two ``LocalEngine`` replicas r0
+   and r1 (serve 1's geometry at 32 slots, a 9.66 GB pool each,
+   ``prefix_split``, ``interactive_slots=4``, the prefix store) share the
+   smoke's ``SUTRO_HOME``, each behind ``start_server_thread``, r0 with a
+   ``profile_dir``; the port's router (``fleet.start_fleet_thread``)
+   fronts both and ``Sutro(backend="fleet")`` talks to it. Two 32-row
+   jobs through the router, one on each replica (r0 drains for the
+   second), progress relayed as NDJSON, each job's outputs equal to its
+   rows' run directly on the other replica; r0's job is traced
+   (``torch.profiler``) and its trace's kernel events must equal each
+   port kernel's launch counters over the job (its busy share, top
+   kernels, trace bytes and export time printed beside r1's untraced
+   wall); 8 two-turn chat sessions under serve 7's S through the
+   router, every turn 2 on its turn 1's replica; a stitched
+   ``GET /trace/{id}``; ``/metrics`` under the ``replica`` label; a
+   ``fleet.replica_crash`` mid-SSE-stream ending in a structured error
+   frame; a 384-row job failed on its owner after its first partial
+   chunk (256 rows) and its server shut down, which must fail over and
+   end SUCCEEDED with every row once and the stored rows byte-equal;
+   ``so.get_fleet`` (not healthy), ``so.get_fleet_monitor``,
+   ``so.get_replay_log`` replayed through ``fleet.replay``; a split
+   decode behind S on the survivor's runner. A ``serve9 summary`` line
+   follows serve 8's;
+8. serve 8, after serve 9's engines are closed: stage graphs, the control
    plane and the live monitor on gpt-oss-20b (24 layers, H=2,880, 64/8
    heads of 64, sinks, a 128-token window on every other layer, 32
    experts top-4; random weights from the seed, 41.8 GB) through
@@ -134,7 +158,7 @@ Phases, in order; any failure raises and exits non-zero:
    logits and a split decode (layers 0 and 1) against their plain
    versions, a MoE forward replaying the kernel run's expert choices
    (``routing``). A ``serve8 summary`` line follows serve 7's;
-8. serve 6, after serve 8's engine is closed: embedding jobs through
+9. serve 6, after serve 8's engine is closed: embedding jobs through
    the façade on ``qwen-3-embedding-0.6b`` (28 layers, H=1024, 16/8
    heads; random weights from the seed) at serve 1's geometry (batches
    of 64 rows). Job E1: 4,096 rows of 16-1,024 tokens written as two
@@ -153,7 +177,7 @@ Phases, in order; any failure raises and exits non-zero:
    against the H100 row and ``so.get_trace(E1)`` give trace events. It
    prints each job's rows/s and input tok/s, the jobstore's flush and
    finalize ms and the bytes of JSON written;
-9. serve 2, after serve 6's runner is freed: a templated batch job on
+10. serve 2, after serve 6's runner is freed: a templated batch job on
    ``qwen3-30b-a3b`` (MoE, 128 experts) at full width and depth with
    ``prefix_split=True``: 96 requests sharing a 1,024-token template.
    Every row must finish, the grouped GEMM, the prefix carry, the
@@ -168,7 +192,7 @@ Phases, in order; any failure raises and exits non-zero:
    without the prefix groups, and a fused window with
    the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
-10. serve 4, on serve 2's runner after serve 2's job (the model is not
+11. serve 4, on serve 2's runner after serve 2's job (the model is not
    loaded again): a schema-constrained templated job of 96 rows, one
    shared 1,024-token template with the classify system prompt at its
    head and a 16-256-token suffix each, at most 128 new tokens: 64
@@ -184,7 +208,7 @@ Phases, in order; any failure raises and exits non-zero:
    forward's logits at each row's first position must match the
    decode forward's (two sets of 8 rows). It prints the mask core
    (native or Python) and the host time spent on masks;
-11. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+12. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
    16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
    past). Every row must finish, the int8 paged decode and flash
@@ -203,7 +227,9 @@ the card's name and power limit; the last line is
 is imported. Exits with 2 and prints no result when no CUDA device is
 available. ``python3 chip_smoke.py --kernels-only`` stops after phase 3
 (and prints neither record); ``--serve8-only`` runs serve 8 after it
-and prints serve 8's summary, not the records. ``python3 chip_smoke.py --pair-timing
+and prints serve 8's summary, not the records; ``--serve9-only`` runs
+the build, then serve 9 alone on a qwen3-8b checkpoint it writes from
+the seed, and prints serve 9's summary. ``python3 chip_smoke.py --pair-timing
 [--package DIR]`` only times the prefix carry and the grouped GEMM
 through their wrappers and prints one JSON line; with ``--package`` the
 ``sutro_tpu_torch`` under DIR (a parent commit's ``git archive``) is
@@ -2797,8 +2823,17 @@ def serve_online(torch, kernels, absent, card: str, ckpt_root: Path, *, model="q
         metrics_burst = c.get_metrics_text()
         # the live monitor over HTTP, its window over the burst: the
         # interactive p99s and the stock TTFT rule's state, then two
-        # ticks of its NDJSON stream
-        mon = c.get_monitor()
+        # ticks of its NDJSON stream. It is read after one tick past the
+        # burst's end, so that the window holds the burst's last samples
+        # (a burst shorter than the tick interval can end after the last
+        # tick)
+        ticks_at_end = c.get_monitor()["ticks"]
+        deadline = time.monotonic() + 30
+        while True:
+            mon = c.get_monitor()
+            if mon["ticks"] > ticks_at_end or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
         ttft_rule = next(r for r in mon["rules"] if r["name"] == "interactive_ttft_p99")
         resp = c.do_request("get", "monitor/stream?ticks=2", stream=True)
         resp.raise_for_status()
@@ -3601,6 +3636,608 @@ def online_summary(out: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------
+# serve 9: the replica fleet on two qwen3-8b replicas
+# ---------------------------------------------------------------------
+
+# each port kernel's launch counters, and what a torch.profiler trace
+# calls the CUDA kernel those launches run (the paged decode's bf16
+# entry serves the plain and the carry counters; its int8 entry is the
+# same template over signed char pages)
+TRACE_KERNELS = (
+    (("paged_decode", "paged_decode_carry"),
+     lambda n: "paged_decode_split_kernel" in n and "char" not in n),
+    (("paged_decode_int8",), lambda n: "paged_decode_split_kernel" in n and "char" in n),
+    (("kv_write",), lambda n: "kv_write_kernel" in n),
+    (("flash_prefill",), lambda n: "flash_prefill_kernel" in n),
+    (("prefix_carry",), lambda n: "prefix_carry_kernel" in n),
+    (("grouped_matmul",), lambda n: "grouped_matmul_wgmma_kernel" in n),
+)
+
+
+def job_trace_figures(trace_file: str, deltas: dict, wall_s: float) -> dict:
+    """A job's ``torch.profiler`` trace (Chrome JSON): the card's busy ms
+    (the union of its kernel intervals, ``stepprofile._busy_us``) and
+    idle share over the job's wall, the five kernels with the most
+    device time, and each port kernel's events beside its launch
+    counters' delta over the job."""
+    from sutro_tpu_torch.engine.stepprofile import _busy_us
+
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_ms = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name.setdefault(e["name"], []).append(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
+    port = {}
+    for counters, match in TRACE_KERNELS:
+        port["+".join(counters)] = {
+            "trace_events": sum(len(v) for n, v in by_name.items() if match(n)),
+            "launches": sum(deltas.get(c, 0) for c in counters)}
+    return {
+        "events": len(events), "kernel_events": len(kernels),
+        "cpu_ops": sum(e.get("cat") == "cpu_op" for e in events),
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)) if wall_s else None,
+        "top_kernels": [{"name": n[:90], "count": len(ds), "ms": sum(ds) / 1e3}
+                        for n, ds in top],
+        "port_kernels": port,
+    }
+
+
+def serve_fleet(torch, kernels, absent, card: str, ckpt_root: Path, *, model="qwen3-8b",
+                device="cuda", geometry=None, n_rows=32, n_failover=384, n_new=32,
+                n_sessions=8, chat_new=16, system_chars=1000, flush_every=None,
+                seed=0) -> dict:
+    """Serve 9: the replica fleet. Two ``LocalEngine`` replicas, r0 and
+    r1, on the checkpoint serve 5 wrote (``ckpt_root``), each with serve
+    1's geometry at half its slots (``decode_batch_size`` 32; an
+    admission budget of the pool's tokens), ``prefix_split``,
+    ``interactive_slots=4`` and the prefix store, sharing one
+    ``SUTRO_HOME``, each behind ``start_server_thread``; r0 with a
+    ``profile_dir``. The port's router over both
+    (``fleet.start_fleet_thread``, probes every 0.2 s) and
+    ``Sutro(backend="fleet")`` at it. Both heads keep only the printable
+    ASCII bytes' and the stop ids' columns (serve 7's trick: replies
+    have text), restored for the logits check.
+
+    - Routing and traces: job A (``n_rows`` rows of 16-500 characters,
+      ``n_new`` tokens, greedy) through the router lands on r0, its
+      progress read through the router's NDJSON relay; A's rows run
+      directly on r1 must give A's outputs (both read through the
+      router's ``/job-results``). A alone is traced: its
+      ``{profile_dir}/{job}/trace.json`` gives the card's busy ms and
+      idle share over A's wall, the top kernels, and each port kernel's
+      events, which must equal its launch counters' delta over A. Then
+      r0 drains: job B through the router must go to r1, and B's rows
+      run directly on r0 (rejoined) must give B's outputs.
+    - Warm affinity: ``n_sessions`` chat sessions of 2 turns each
+      (serve 7's system prompt S, ``chat_new`` tokens, greedy, streamed)
+      through the router, each turn's sessions at once: every turn 2
+      must go to its turn 1's replica (the router's trace of each
+      request names it), the router must count a prefix hit for each,
+      and the replicas' stores must hit. ``GET /trace/{id}`` of one chat
+      must stitch the router's spans and the replica's; ``/metrics``
+      must show the replicas' TTFT under the ``replica`` label.
+    - A replica dying mid-stream: a server of its own on r0 behind a
+      router of its own (stall timeout 10 s), a ``fleet.replica_crash``
+      at the second token frame of an SSE chat: the client must get
+      frames, then the structured error frame (code 502) and ``[DONE]``.
+    - Failover: job F (``n_failover`` rows of 16-300 characters,
+      ``n_new`` tokens, greedy) through the router; once its owner has
+      flushed its first partial chunk a ``runner.decode`` fault fails it
+      there, and the owner's server shuts down. The breaker must open,
+      the router fail the job over, and F end SUCCEEDED on the survivor
+      with every row id once and the rows stored before the kill
+      byte-equal in the results; the resumed rows are compared with an
+      unkilled run of them on the survivor (printed, not held: bf16 GEMMs
+      at another batch shape round differently).
+    - Observability: ``so.get_fleet()`` (the doctor not ``healthy``),
+      ``so.get_fleet_monitor()``, ``so.get_replay_log()`` (the chats),
+      whose records ``fleet.replay`` sends to the router again.
+    - On the survivor's runner with its whole head, ``check_split_decode``
+      behind S's pages over 8 of the chats' prompts.
+
+    ``kernels`` must launch on the path, ``absent`` must not (both empty
+    on the CPU, where the plain versions run)."""
+    import os
+    import threading
+    import traceback
+    import urllib.request
+
+    from sutro_tpu_torch import fleet
+    from sutro_tpu_torch.engine import api, faults, profiling
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer, encode_chat_batch
+    from sutro_tpu_torch.fleet import replay as replay_mod
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+    from sutro_tpu_torch.sdk import Sutro
+    from sutro_tpu_torch.server import start_server_thread
+    from sutro_tpu_torch.telemetry import traceexport
+
+    mcfg = MODEL_CONFIGS[model]
+    if geometry is None:   # serve 1's geometry at half its slots
+        geometry = dict(ENGINES[model][0])
+        geometry["decode_batch_size"] //= 2
+    base = dict(geometry, prefix_split=True, weights_dir=str(ckpt_root), seed=seed,
+                interactive_slots=4,
+                max_batch_tokens=geometry["decode_batch_size"] * geometry["max_model_len"])
+    PSz = base["kv_page_size"]
+    tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 9)
+    text = lambda r, n: "".join(r.choice(ALPHABET, int(n)))  # noqa: E731
+    catalog = {"qwen3-8b": "qwen-3-8b"}.get(model, model)
+    system = online_system_prompt(np.random.default_rng(seed + 7), system_chars)
+    rows_a = [text(rng, n) for n in rng.integers(16, 501, n_rows)]
+    rows_b = [text(rng, n) for n in rng.integers(16, 501, n_rows)]
+    rows_f = [text(rng, n) for n in rng.integers(16, 301, n_failover)]
+    user = [[text(rng, n) for n in rng.integers(32, 129, 2)] for _ in range(n_sessions)]
+    sampling = {"temperature": 0.0, "max_new_tokens": n_new}
+    profile_dir = Path(os.environ["SUTRO_HOME"]) / "profiles"
+
+    engines, builds, servers, urls = [], [], {}, {}
+    whole = None
+    t_start = time.monotonic()
+    for i in range(2):
+        eng = api.LocalEngine(EngineConfig(
+            **base, profile_dir=str(profile_dir) if i == 0 else None), device=device)
+        engines.append(eng)
+        t0 = time.monotonic()
+        runner = eng._get_runner(mcfg.name, mcfg)[0]
+        if device != "cpu":
+            torch.cuda.synchronize()
+        builds.append({"build_s": time.monotonic() - t0,
+                       "param_bytes": runner.device_info()["param_bytes"],
+                       "pool_bytes": 2 * runner.cache.k_pages.numel()
+                       * runner.cache.k_pages.element_size()})
+        head = runner.params.get("lm_head")
+        if head is not None:
+            keep = torch.as_tensor([*range(32, 127), *tok.stop_ids()], device=head.device)
+            with torch.no_grad():
+                if whole is None:
+                    whole = head.clone()   # one checkpoint: both heads are equal
+                head.zero_()
+                head[:, keep] = whole[:, keep]
+        srv, _, url = start_server_thread(eng)
+        servers[f"r{i}"], urls[f"r{i}"] = srv, url
+    allocated = torch.cuda.memory_allocated() if device != "cpu" else 0
+    print(f"serve9: two {model} replicas built in "
+          f"{[round(b['build_s'], 2) for b in builds]} s: {json.dumps(builds)}; "
+          f"{allocated / 1e9:.2f} GB allocated on the card", flush=True)
+    # both replicas share this process, and so its one interpreter lock:
+    # under a decode window's host work a warm probe took over the
+    # router's default second (max(0.25, probe_timeout / 2)), and a
+    # timed-out probe scores the replica cold
+    router, fsrv, _, furl = fleet.start_fleet_thread([urls["r0"], urls["r1"]],
+                                                    probe_interval=0.2, probe_timeout=10.0)
+    c = Sutro(backend="fleet", base_url=furl, api_key="smoke")
+    store = engines[0].jobs   # either handle: the jobstore is shared
+    by_rid = {"r0": engines[0], "r1": engines[1]}
+
+    def wait_for(pred, what, timeout=900):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve9: timed out waiting for {what}")
+            time.sleep(0.02)
+
+    def counts():
+        return {k.name: k.launches for k in (*kernels, *absent)}
+
+    def results(jid):
+        return c._remote_json("post", "job-results", json={"job_id": jid})["results"]
+
+    def job_wall(eng, jid):
+        rec = eng.get_job(jid)
+        return _record_s(rec, "datetime_started", "datetime_completed"), rec
+
+    def direct(eng, rows):
+        jid = eng.submit_batch_inference({"model": catalog, "inputs": rows,
+                                          "sampling_params": sampling})
+        wait_for(lambda: eng.job_status(jid) in ("SUCCEEDED", "FAILED"), f"job {jid}")
+        if eng.job_status(jid) != "SUCCEEDED":
+            raise AssertionError(f"serve9: {jid} ended {eng.get_job(jid)}")
+        return jid
+
+    for k in (*kernels, *absent):
+        k.launches = 0
+    helpers, t_kill, marks = [], None, {}
+    mark = lambda name: marks.__setitem__(name, time.monotonic() - t_start)  # noqa: E731
+    try:
+        wait_for(lambda: router.membership.snapshot()["n_healthy"] == 2,
+                 "both replicas healthy", 60)
+
+        # -- routing and traces --------------------------------------------
+        before = counts()
+        jid_a = c.infer(rows_a, model=catalog, stay_attached=False, sampling_params=sampling)
+        owner_a = router.job_owner(jid_a)
+        prog_a = [int(u["result"]) for u in c._iter_progress(jid_a)
+                  if u.get("update_type") == "progress"]
+        if owner_a != "r0" or c.get_job_status(jid_a) != "SUCCEEDED" or prog_a[-1:] != [n_rows]:
+            raise AssertionError(f"serve9: job A on {owner_a}, {c.get_job_status(jid_a)}, "
+                                 f"progress {prog_a[-3:]}")
+        trace_file = profile_dir / jid_a / profiling.TRACE_FILE
+        wait_for(trace_file.exists, "job A's trace", 300)
+        deltas_a = {k: v - before[k] for k, v in counts().items()}
+        wall_a, rec_a = job_wall(engines[0], jid_a)
+        exported = profiling.last_trace()
+        if exported["file"] != str(trace_file):
+            raise AssertionError(f"serve9: the last trace is {exported}, not {trace_file}")
+        tel_a = c._remote_json("get", f"job-telemetry/{jid_a}")["telemetry"]
+        if tel_a["attrs"].get("profile_trace") != str(profile_dir / jid_a):
+            raise AssertionError(f"serve9: job A's profile_trace attr is "
+                                 f"{tel_a['attrs'].get('profile_trace')}")
+        t0 = time.monotonic()
+        traced = job_trace_figures(str(trace_file), deltas_a, wall_a)
+        traced.update(file_bytes=exported["bytes"], export_s=exported["export_s"],
+                      parse_s=time.monotonic() - t0)
+        bad = {n: v for n, v in traced["port_kernels"].items()
+               if v["trace_events"] != v["launches"]}
+        if bad or (device != "cpu" and not (traced["port_kernels"]["flash_prefill"][
+                "launches"] and traced["port_kernels"]["kv_write"]["launches"] and traced[
+                "port_kernels"]["paged_decode+paged_decode_carry"]["launches"])):
+            raise AssertionError(f"serve9: job A's trace against its launch counters: "
+                                 f"{traced['port_kernels']}")
+        engines[0].ecfg.profile_dir = None   # A alone is traced
+        jid_a1 = direct(engines[1], rows_a)
+        wall_a1, rec_a1 = job_wall(engines[1], jid_a1)
+        out_a = results(jid_a)["outputs"]
+        if out_a != results(jid_a1)["outputs"] or len(out_a) != n_rows:
+            raise AssertionError("serve9: job A's outputs differ from its rows' on r1")
+        # r0 drains: the router sends B to r1, then r0 rejoins and B's
+        # rows run directly on it
+        engines[0].gateway.begin_drain()
+        try:
+            wait_for(lambda: router.membership.snapshot()["n_draining"] == 1,
+                     "the router to see r0 drain", 60)
+            jid_b = c.infer(rows_b, model=catalog, stay_attached=False,
+                            sampling_params=sampling)
+            owner_b = router.job_owner(jid_b)
+        finally:
+            engines[0].gateway.draining = False
+        prog_b = [int(u["result"]) for u in c._iter_progress(jid_b)
+                  if u.get("update_type") == "progress"]
+        if owner_b != "r1" or c.get_job_status(jid_b) != "SUCCEEDED" or prog_b[-1:] != [n_rows]:
+            raise AssertionError(f"serve9: job B on {owner_b}, {c.get_job_status(jid_b)}, "
+                                 f"progress {prog_b[-3:]}")
+        b0 = direct(engines[0], rows_b)
+        if results(jid_b)["outputs"] != results(b0)["outputs"]:
+            raise AssertionError("serve9: job B's outputs differ from its rows' on r0")
+        wait_for(lambda: router.membership.snapshot()["n_healthy"] == 2, "r0 to rejoin", 60)
+        wall_b, rec_b = job_wall(engines[1], jid_b)
+        mark("routing_and_trace")
+        print(f"serve9: routing: A on {owner_a} {wall_a:.2f}s traced, its rows on r1 "
+              f"{wall_a1:.2f}s untraced, B on {owner_b} {wall_b:.2f}s; A's trace "
+              f"{json.dumps(traced)}", flush=True)
+
+        # -- warm affinity: chat sessions of 2 turns -------------------------
+        # S warm on both replicas first (a chat straight to each), so
+        # that turn 1 ties on warmth and spreads by load, and only a
+        # session's own pages can pull its turn 2
+        for rid in ("r0", "r1"):
+            with urllib.request.urlopen(urllib.request.Request(
+                    urls[rid] + "/v1/chat/completions", method="POST",
+                    headers={"Content-Type": "application/json"},
+                    data=json.dumps({"model": catalog, "max_tokens": 2, "messages": [
+                        {"role": "system", "content": system},
+                        {"role": "user", "content": "warm"}]}).encode()), timeout=300) as r:
+                r.read()
+        hits0 = {r: e._prefix_stores[mcfg.name].hits for r, e in by_rid.items()}
+        phits0 = router.counters["prefix_hits"]
+        errors, replies = [], {}
+
+        def chat(i, turn):
+            try:
+                msgs = [{"role": "system", "content": system},
+                        {"role": "user", "content": user[i][turn]}]
+                parts = []
+                for chunk in c.chat(msgs, model=catalog, stream=True, max_tokens=chat_new,
+                                    temperature=0.0, session_id=f"fleet-s{i}"):
+                    parts.append(chunk["choices"][0]["delta"].get("content") or "")
+                replies[(i, turn)] = "".join(parts)
+            except Exception:  # noqa: BLE001 — reported below
+                errors.append(traceback.format_exc())
+
+        t_chat = time.monotonic()
+        for turn in range(2):
+            threads = [threading.Thread(target=chat, args=(i, turn), daemon=True)
+                       for i in range(n_sessions)]
+            for t in threads:
+                t.start()
+                if turn == 0:
+                    # turn 1 ties on S's warmth: arrivals 0.25 s apart
+                    # let each pick see the load the earlier ones put on
+                    # (at once, every pick reads the same idle loads)
+                    time.sleep(0.25)
+            for t in threads:
+                t.join(timeout=600)
+            if errors or len(replies) != n_sessions * (turn + 1):
+                raise AssertionError("serve9: chats failed:\n" + "\n".join(errors))
+        chat_s = time.monotonic() - t_chat
+        served = {}   # session -> [replica of turn 1, of turn 2]
+        chat_tids, probe_s = [], []
+        for tid in router.obs.traces.ids():
+            tr = router.obs.traces.get(tid)
+            a = tr.attrs
+            if a.get("kind") == "chat" and str(a.get("session_id", "")).startswith("fleet-s"):
+                served.setdefault(a["session_id"], []).append((a["arrival_unix"],
+                                                               a.get("replica")))
+                chat_tids.append(tid)
+                probe_s += [sp["dur_s"] for sp in tr.to_doc()["spans"]
+                            if sp["name"] == "affinity_probe"]
+        sticky = {s: [r for _, r in sorted(v)] for s, v in served.items()}
+        hits = {r: e._prefix_stores[mcfg.name].hits - hits0[r] for r, e in by_rid.items()}
+        affinity = {"sessions": sticky, "router_prefix_hits": router.counters["prefix_hits"]
+                    - phits0, "store_hits": hits,
+                    "turn1_replicas": sorted({v[0] for v in sticky.values()}),
+                    "chat_s": chat_s, "affinity_probe_s": quantiles(probe_s)}
+        print(f"serve9: affinity: {json.dumps(affinity)}", flush=True)
+        mark("affinity")
+        if len(sticky) != n_sessions or any(len(v) != 2 or v[0] != v[1] or v[0] is None
+                                            for v in sticky.values()) or affinity[
+                "router_prefix_hits"] < n_sessions or sum(hits.values()) < n_sessions:
+            raise AssertionError(f"serve9: warm affinity: {affinity}")
+        if any(not replies[(i, 1)] for i in range(n_sessions)) and device != "cpu":
+            raise AssertionError(f"serve9: replies without text: {replies}")
+        # one chat's stitched trace: the router's spans and its replica's
+        tid = chat_tids[-1]
+        wait_for(lambda: router.obs.traces.get(tid).finished, "the chat's router trace", 30)
+        doc = router.obs.stitch_trace(tid)
+        spans = traceexport.stitched_spans(doc)
+        names = {s["name"] for s in spans}
+        with urllib.request.urlopen(f"{furl}/trace/{tid}", timeout=30) as resp:
+            chrome = json.loads(resp.read())
+        stitched = {"trace_id": tid, "processes": chrome["otherData"]["processes"],
+                    "spans": len(spans), "names": sorted(names)}
+        if (len(doc["processes"]) != 2 or not {"route_pick", "upstream_connect", "first_byte",
+                                               "admit_gateway"} <= names
+                or min(s["t0_s"] for s in spans) < 0):
+            raise AssertionError(f"serve9: the stitched trace: {stitched}")
+        time.sleep(0.5)   # past the router's scrape interval
+        metrics = c.get_metrics_text()
+        labelled = [ln for ln in metrics.splitlines()
+                    if ln.startswith("sutro_interactive_ttft_seconds")
+                    and ('replica="r0"' in ln or 'replica="r1"' in ln)]
+        if not labelled or 'sutro_fleet_replicas{state="healthy"} 2' not in metrics:
+            raise AssertionError("serve9: /metrics through the router has no replica series")
+
+        # -- a replica dying mid-stream --------------------------------------
+        srv_x, _, url_x = start_server_thread(engines[0])
+        router_x, fsrv_x, _, furl_x = fleet.start_fleet_thread([url_x], probe_interval=0.2,
+                                                              stall_timeout=10.0)
+        helpers.append((router_x, fsrv_x, srv_x))
+        wait_for(lambda: router_x.membership.snapshot()["n_healthy"] == 1, "r0 alone", 60)
+        faults.install(faults.parse_plan(json.dumps([
+            {"site": "fleet.replica_crash", "kind": "crash", "job": "stream:", "nth": 2,
+             "times": 1}])))
+        lines, times = [], []
+        t0 = time.monotonic()
+        try:
+            req = urllib.request.Request(
+                furl_x + "/v1/chat/completions", method="POST",
+                headers={"Content-Type": "application/json"},
+                data=json.dumps({"model": catalog, "stream": True, "temperature": 0.0,
+                                 "max_tokens": chat_new, "messages": [
+                                     {"role": "user", "content": user[0][0]}]}).encode())
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                for raw in resp:
+                    if raw.strip():
+                        lines.append(raw.decode().strip())
+                        times.append(time.monotonic())
+        finally:
+            faults.clear()
+        errs = [i for i, ln in enumerate(lines) if '"error"' in ln]
+        stream = {"frames": len(lines), "total_s": times[-1] - t0 if times else None}
+        if errs:
+            err = json.loads(lines[errs[-1]][len("data: "):])["error"]
+            stream.update(error=err, error_after_last_frame_s=times[errs[-1]]
+                          - times[errs[-1] - 1] if errs[-1] else None,
+                          error_s=times[errs[-1]] - t0)
+        print(f"serve9: mid-stream crash: {json.dumps(stream)}", flush=True)
+        mark("stream_crash")
+        if (not errs or errs[-1] < 1 or stream["error"]["code"] != 502
+                or lines[-1] != "data: [DONE]" or stream["error_s"] > 30
+                or router_x.counters["failover_stream_error"] != 1):
+            raise AssertionError(f"serve9: the mid-stream crash: {stream}, {lines[-4:]}")
+
+        # -- failover ------------------------------------------------------
+        if flush_every is not None:
+            real_flush_every, api._PARTIAL_FLUSH_EVERY = api._PARTIAL_FLUSH_EVERY, flush_every
+        first_chunk = api._PARTIAL_FLUSH_EVERY
+        try:
+            jid_f = c.infer(rows_f, model=catalog, stay_attached=False,
+                            sampling_params=sampling)
+            owner = router.job_owner(jid_f)
+            survivor = "r1" if owner == "r0" else "r0"
+            wait_for(lambda: len(store.read_partial(jid_f)) >= first_chunk
+                     or store.status(jid_f).is_terminal(), "F's first partial chunk")
+            faults.configure("runner.decode:oom:nth=1,times=1")
+            wait_for(lambda: store.status(jid_f).is_terminal(), "F to fail on its owner")
+        finally:
+            faults.clear()
+            if flush_every is not None:
+                api._PARTIAL_FLUSH_EVERY = real_flush_every
+        if store.status(jid_f).value != "FAILED":
+            raise AssertionError(f"serve9: F ended {store.status(jid_f)} on {owner}")
+        partial = store.read_partial(jid_f)
+        t_kill = time.monotonic()
+        servers[owner].shutdown()
+        servers[owner].server_close()
+        wait_for(lambda: router.counters["failover_batch"] >= 1, "the failover", 120)
+        t_moved = time.monotonic()
+        wait_for(lambda: c.get_job_status(jid_f) == "SUCCEEDED", "F on the survivor")
+        t_done = time.monotonic()
+        fleet_doc = c.get_fleet()
+        res_f = store.read_results(jid_f)
+        ids = list(res_f["row_id"])
+        lost = n_failover - len(set(ids) & set(range(n_failover)))
+        dup = len(ids) - len(set(ids))
+        by_row = dict(zip(ids, res_f["outputs"]))
+        kept = sum(by_row.get(i) == row["outputs"] for i, row in partial.items())
+        failover = {"owner": owner, "survivor": survivor, "rows": n_failover,
+                    "rows_stored_before_kill": len(partial), "stored_rows_equal": kept,
+                    "rows_lost": lost, "rows_duplicated": dup,
+                    "kill_to_failover_s": t_moved - t_kill,
+                    "kill_to_succeeded_s": t_done - t_kill,
+                    "router_owner": router.job_owner(jid_f),
+                    "failovers": fleet_doc["failovers"],
+                    "doctor": fleet_doc["doctor"]["verdict"],
+                    "n_healthy": fleet_doc["n_healthy"]}
+        print(f"serve9: failover: {json.dumps(failover)}", flush=True)
+        if (lost or dup or len(ids) != n_failover or kept != len(partial)
+                or len(partial) < first_chunk or failover["router_owner"] != survivor
+                or fleet_doc["failovers"]["batch"] < 1 or fleet_doc["doctor"]["verdict"]
+                == "healthy" or fleet_doc["n_healthy"] != 1):
+            raise AssertionError(f"serve9: failover: {failover}")
+        mark("failover")
+        # the resumed rows again as a job of their own on the survivor:
+        # how many match the resumed run's tokens (printed, not held)
+        resumed = [i for i in range(n_failover) if i not in partial]
+        jid_u = direct(by_rid[survivor], [rows_f[i] for i in resumed])
+        unkilled = results(jid_u)["outputs"]
+        failover["resumed_rows"] = len(resumed)
+        failover["resumed_equal_to_unkilled"] = sum(
+            by_row[i] == u for i, u in zip(resumed, unkilled))
+        mark("unkilled_run")
+
+        # -- observability -------------------------------------------------
+        wait_for(lambda: router.monitor is None or router.monitor.snapshot_doc()["ticks"] >= 1,
+                 "a fleet monitor tick", 30)
+        mon = c.get_fleet_monitor()
+        records = c.get_replay_log()
+        chats = [r for r in records if str(r.get("session_id", "")).startswith("fleet-s")]
+        if len(chats) != 2 * n_sessions or not all(r.get("body") for r in chats):
+            raise AssertionError(f"serve9: the replay log holds {len(chats)} of the chats")
+        replayed = replay_mod.replay(furl, chats, speedup=4.0, timeout=300.0)
+        if replayed["ok"] != 2 * n_sessions or replayed["errors"]:
+            raise AssertionError(f"serve9: the replay: {replayed}")
+        monitor = None if mon is None else {
+            "ticks": mon["ticks"], "verdict": mon["verdicts"]["fleet"]["verdict"],
+            "rules": {r["name"]: r["state"] for r in mon["rules"]}}
+        wall = time.monotonic() - t_start
+        mark("observability_and_replay")
+        launches = counts()
+
+        # -- the split decode behind S on the survivor's whole head ------------
+        runner = by_rid[survivor]._get_runner(mcfg.name, mcfg)[0]
+        head = runner.params.get("lm_head")
+        if head is not None:
+            with torch.no_grad():
+                head.copy_(whole)
+        prompts = [np.asarray(x, np.int32) for x in encode_chat_batch(
+            tok, [u[0] for u in user], system, mcfg.chat_template)]
+        template = shared_head(prompts, PSz)
+        split = check_split_decode(torch, runner, template, prompts[:8], rng,
+                                   "serve9 chat prompts")
+    finally:
+        faults.clear()
+        for r_, f_, s_ in helpers:
+            r_.stop()
+            f_.shutdown()
+            try:
+                s_.shutdown()
+                s_.server_close()
+            except OSError:
+                pass
+        router.stop()
+        fsrv.shutdown()
+        for rid, srv in servers.items():
+            try:
+                srv.shutdown()
+                srv.server_close()
+            except OSError:
+                pass
+        for eng in engines:
+            eng.close(timeout=60)
+            eng._runner_cache.clear()
+        whole = None
+
+    out = {
+        "card": card, "wall_s": wall, "replicas": builds,
+        "allocated_bytes": allocated,
+        "phase_ends_s": marks,
+        "routing": {"a": {"owner": owner_a, "wall_s": wall_a, "rows": n_rows,
+                          "output_tokens": rec_a["output_tokens"], "traced": True},
+                    "a_direct_on_r1": {"wall_s": wall_a1, "traced": False,
+                                       "output_tokens": rec_a1["output_tokens"]},
+                    "b": {"owner": owner_b, "wall_s": wall_b,
+                          "output_tokens": rec_b["output_tokens"]},
+                    # the untraced routed job's output tokens over its wall
+                    "routed_tok_s": rec_b["output_tokens"] / wall_b,
+                    "traced_tok_s": rec_a["output_tokens"] / wall_a,
+                    # a cross-run estimate, not one run's share: the
+                    # traced run's device time over the wall of the same
+                    # rows run untraced on r1 (the profiler's host cost
+                    # is not the card's)
+                    "cross_run_busy_share": traced["device_busy_ms"] / 1e3 / wall_a1},
+        "trace": traced, "affinity": affinity, "stitched": stitched,
+        "stream_error": stream, "failover": failover, "monitor": monitor,
+        "replay": {k: replayed[k] for k in ("n", "sent", "ok", "errors", "wall_s", "ttft")},
+        "split_vs_full_rel_l2": split[0], "split_vs_full_layer0_attn_max_abs": split[1],
+        "launches": launches,
+    }
+    for k in kernels:
+        if launches[k.name] <= 0:
+            raise AssertionError(f"serve9: kernel {k.name} was not launched by the serve")
+    for k in absent:
+        if launches[k.name]:
+            raise AssertionError(f"serve9: kernel {k.name} launched {launches[k.name]} times")
+    print("serve9: " + json.dumps(out), flush=True)
+    return out
+
+
+def fleet_summary(out: dict) -> dict:
+    """Serve 9's headline figures, for a line near the end of the output."""
+    t, fo = out["trace"], out["failover"]
+    return {
+        "card": out["card"], "wall_s": out["wall_s"],
+        "build_s": [r["build_s"] for r in out["replicas"]],
+        "routed_tok_s": out["routing"]["routed_tok_s"],
+        "traced_job": {"wall_s": out["routing"]["a"]["wall_s"],
+                       "untraced_wall_s": out["routing"]["a_direct_on_r1"]["wall_s"],
+                       "device_busy_ms": t["device_busy_ms"],
+                       "device_idle_share": t["device_idle_share"],
+                       "cross_run_busy_share": out["routing"]["cross_run_busy_share"],
+                       "trace_bytes": t["file_bytes"], "export_s": t["export_s"]},
+        "failover_s": fo["kill_to_succeeded_s"], "rows_lost": fo["rows_lost"],
+        "rows_duplicated": fo["rows_duplicated"],
+        "stream_error_s": out["stream_error"].get("error_s"),
+        "affinity_hits": out["affinity"]["router_prefix_hits"],
+        "stitched_spans": out["stitched"]["spans"],
+        "replay": {k: out["replay"][k] for k in ("sent", "ok", "errors")},
+        "launches": out["launches"],
+    }
+
+
+
+def fleet_checkpoint(torch, home: Path, model: str = "qwen3-8b", seed: int = 0) -> Path:
+    """Serve 9's checkpoint when it runs alone (``--serve9-only``):
+    serve 1's random weights from the seed, written as serve 5 writes
+    them; returns the weights root."""
+    import gc
+
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.runner import ModelRunner
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    mcfg = MODEL_CONFIGS[model]
+    geometry = dict(ENGINES[model][0], decode_batch_size=1)   # weights only: a small pool
+    runner = ModelRunner(mcfg, EngineConfig(**geometry, seed=seed), device="cuda")
+    need = float(sum(t.numel() * t.element_size() for _, t in flat_leaves(runner.params)))
+    root = checkpoint_root(home, need)
+    t0 = time.monotonic()
+    ckpt = write_checkpoint(torch, runner.params, mcfg, root / mcfg.name)
+    print(f"serve9: checkpoint of {ckpt['bytes'] / 1e9:.2f} GB written in "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return root
+
 EMBED_MODEL = "qwen3-emb-0.6b"          # catalog name qwen-3-embedding-0.6b
 EMBED_CHECK_ROWS = 8
 
@@ -3947,6 +4584,12 @@ def run(torch, args, home: Path) -> int:
             print(f"sass[{k.source.name}]: {fn}: HMMA/HGMMA={n['mma']} LDGSTS={n['cp_async']} "
                   f"UTMALDG={n['tma']}", flush=True)
 
+    if "--serve9-only" in args:   # the build, then serve 9 on its own checkpoint
+        s9 = serve_fleet(torch, facade_path, facade_absent, card, fleet_checkpoint(torch, home))
+        print("serve9 summary: " + json.dumps(fleet_summary(s9)))
+        print(f"card: {card}")
+        return 0
+
     records = []
     rng = np.random.default_rng(1234)
     for fn in (kernel_paged_decode, kernel_kv_write, kernel_flash_prefill,
@@ -3987,6 +4630,9 @@ def run(torch, args, home: Path) -> int:
     ckpt = Path(served["qwen3-8b façade"]["checkpoint"]["dir"])
     try:
         served["qwen3-8b serving"] = serve_online(torch, facade_path, facade_absent, card, ckpt)
+        free_card(torch, "qwen3-8b")
+        # serve 9: the replica fleet, two replicas of the same checkpoint
+        served["qwen3-8b fleet"] = serve_fleet(torch, facade_path, facade_absent, card, ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     free_card(torch, "qwen3-8b")
@@ -4036,6 +4682,7 @@ def run(torch, args, home: Path) -> int:
     print(json.dumps({"kernels": kernels}))
     print("serve7 summary: " + json.dumps(online_summary(served["qwen3-8b serving"])))
     print("serve8 summary: " + json.dumps(graphs_summary(served["gpt-oss-20b graphs"])))
+    print("serve9 summary: " + json.dumps(fleet_summary(served["qwen3-8b fleet"])))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

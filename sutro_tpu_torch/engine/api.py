@@ -49,10 +49,14 @@ per-tenant admission buckets, the preemptive priority ladder, the
 autotuner driven by the monitor's tick) whenever ``SUTRO_CONTROL`` /
 ``EngineConfig.control`` resolve on.
 
+With ``EngineConfig.profile_dir`` set, every generation job runs under
+``profiling.job_trace``: a ``torch.profiler`` trace (the card's kernels
+and the CPU's ops) in ``{profile_dir}/{job_id}/trace.json``, entered on
+the worker thread that drives the job's batcher.
+
 Left out (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): data-parallel engines (``SUTRO_DP_WORLD`` above 1, the
-embedding job's data-parallel branch too, ``job_fleet``). Device traces
-(``profile_dir``) are not taken.
+embedding job's data-parallel branch too, ``job_fleet``).
 """
 
 from __future__ import annotations
@@ -1170,7 +1174,12 @@ class LocalEngine:
         )
         if self.control is not None:
             batcher.ladder = self.control.ladder
-        return self._run_cobatch_session(job_id, engine_key, sess, batcher)
+        from .profiling import job_trace
+
+        # on this thread: the one that runs the batcher (torch.profiler
+        # records CPU ops only on the thread that started it)
+        with job_trace(self.ecfg.profile_dir, job_id, self.device):
+            return self._run_cobatch_session(job_id, engine_key, sess, batcher)
 
     def _run_serving_session(self, engine_key: str) -> None:
         """Serving-only co-batch session: no primary batch job, just

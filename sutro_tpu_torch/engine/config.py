@@ -240,9 +240,9 @@ class EngineConfig:
                                         # on the CPU their plain versions
     weights_dir: Optional[str] = None   # local HF-style checkpoint root
     seed: int = 0
-    profile_dir: Optional[str] = None   # device-trace directory (read by
-                                        # the JAX package's job_trace; the
-                                        # port has no device trace yet)
+    profile_dir: Optional[str] = None   # capture a per-job torch.profiler
+                                        # trace into {profile_dir}/{job_id}
+                                        # (engine/profiling.py job_trace)
 
     def resolved_mesh(
         self, n_devices: Optional[int] = None

@@ -1,21 +1,130 @@
 """Engine-level profiling.
 
-Host-side step timing that lands in the job record, so every job
+The port of ``sutro_tpu/engine/profiling.py``: device traces over
+``torch.profiler`` (the JAX package's go through ``jax.profiler``) plus
+host-side step timing that lands in the job record, so every job
 reports its own latency profile without external tooling.
 
+- ``job_trace(profile_dir, job_id, device)``: context manager capturing
+  a trace for the whole job into ``{profile_dir}/{job_id}/trace.json``
+  (Chrome trace-event JSON: Perfetto or ``chrome://tracing`` open it)
+  when ``EngineConfig.profile_dir`` is set (off by default — tracing
+  costs memory and time). On a CUDA device it records the CPU's ops and
+  the card's kernels (CUPTI, process-wide: a co-batched job's kernels
+  land in the trace); with ``device="cpu"`` the CPU's ops alone.
+  ``torch.profiler`` records CPU ops only on the thread that started
+  it, so the engine enters it on the thread that drives the job's
+  batcher.
 - ``StepTimer``: cheap wall-clock histogram of prefill/decode steps;
   summarized as count/mean/p50/p90/p99 milliseconds.
-
-Device traces (the JAX package's ``job_trace`` over ``jax.profiler``)
-are not ported yet; ``torch.profiler`` takes their place in a later
-slice.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
+import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional
+
+logger = logging.getLogger(__name__)
+
+#: the file a job's trace is exported to, inside ``{profile_dir}/{job_id}``
+TRACE_FILE = "trace.json"
+
+# Kineto runs ONE profiler per process (as jax.profiler holds one
+# device trace): two overlapping jobs with profile_dir set must not
+# both start one. Refcounted instead — the first job starts the trace,
+# later overlapping jobs join it (logged), the last one out stops it.
+_trace_lock = threading.Lock()
+_trace_state: Dict[str, Any] = {"count": 0, "path": None, "prof": None,
+                                "last": None}
+
+
+def last_trace() -> Optional[Dict[str, Any]]:
+    """The last exported trace: ``{"path", "file", "bytes", "export_s"}``
+    (``export_s`` the seconds ``export_chrome_trace`` took), or None
+    before the first."""
+    with _trace_lock:
+        last = _trace_state["last"]
+        return dict(last) if last is not None else None
+
+
+def _start(path: str, device: Any) -> Any:
+    """A started ``torch.profiler`` for a trace bound for ``path``: the
+    CPU's ops (on this thread), and the card's kernels on a CUDA
+    ``device``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    logger.info("device trace for %s started (%s)", path, device)
+    return prof
+
+
+def _stop(prof: Any, path: str) -> None:
+    """Stop the profiler and export its trace: to a temporary name, then
+    renamed, so ``trace.json`` appears whole or not at all."""
+    prof.stop()
+    out = os.path.join(path, TRACE_FILE)
+    t0 = time.perf_counter()
+    prof.export_chrome_trace(out + ".tmp")
+    os.replace(out + ".tmp", out)
+    export_s = time.perf_counter() - t0
+    _trace_state["last"] = {
+        "path": path, "file": out, "bytes": os.path.getsize(out),
+        "export_s": export_s,
+    }
+    logger.info("device trace %s: %d bytes exported in %.2fs", out,
+                _trace_state["last"]["bytes"], export_s)
+
+
+@contextlib.contextmanager
+def job_trace(
+    profile_dir: Optional[str], job_id: str, device: Any = "cuda"
+) -> Iterator[None]:
+    if not profile_dir:
+        yield
+        return
+    with _trace_lock:
+        if _trace_state["count"] == 0:
+            path = os.path.join(profile_dir, job_id)
+            os.makedirs(path, exist_ok=True)
+            _trace_state["prof"] = _start(path, device)
+            _trace_state["path"] = path
+        else:
+            logger.info(
+                "device trace already running (%s); %s joins it "
+                "instead of starting a second trace",
+                _trace_state["path"], job_id,
+            )
+        _trace_state["count"] += 1
+        active_path = _trace_state["path"]
+    # the job's telemetry document records WHERE its device trace went
+    # (its own dir, or the co-batched job's trace it joined)
+    from .. import telemetry
+
+    if telemetry.enabled():
+        telemetry.job(job_id).attrs["profile_trace"] = active_path
+    try:
+        yield
+    finally:
+        with _trace_lock:
+            _trace_state["count"] -= 1
+            if _trace_state["count"] == 0:
+                prof, path = _trace_state["prof"], _trace_state["path"]
+                _trace_state["prof"] = _trace_state["path"] = None
+                try:
+                    _stop(prof, path)
+                except Exception:  # noqa: BLE001 — a profiling teardown
+                    # must never fail the job
+                    logger.warning("device trace stop failed",
+                                   exc_info=True)
 
 
 class StepTimer:

@@ -76,12 +76,12 @@ from .config import EngineConfig
 from .runner import ModelRunner
 
 
-def _busy_us(events) -> float:
-    """Union of the device kernel intervals (us): overlapping kernels on
-    several streams count once."""
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in events
-    )
+def _busy_us(spans) -> float:
+    """Union of the device kernel intervals ``(start, end)`` (us):
+    overlapping kernels on several streams count once. The intervals of
+    a profiler's events, or of a Chrome trace's kernel events (``ts``,
+    ``ts + dur``)."""
+    spans = sorted(spans)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -114,7 +114,7 @@ def profile_phase(name: str, fn: Callable[[], None], repeats: int = 5) -> Dict:
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    busy_ms = _busy_us(kernels) / 1e3
+    busy_ms = _busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
     by_name: Dict[str, List[float]] = {}
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())

@@ -1,8 +1,11 @@
 """Router↔replica wire frames for the replica fleet.
 
-The port of ``sutro_tpu/fleet/frames.py``; its transport (``_send``) is
-``urllib``. The router itself is not ported yet (ROADMAP.md §1, "Serving
-and fleet"): a replica answers with these frames.
+The port of ``sutro_tpu/fleet/frames.py``. Its transports are the
+standard library's (the card's machine has no ``requests``): one
+transport, ``_open`` over ``http.client`` (``UpstreamResponse``), with
+``requests``' split of a connect timeout from a per-read one, and one
+place that maps its failures (``_io``). ``_send`` is its small JSON
+exchange, for the prober, affinity and obs.
 
 The fleet front door (``fleet/router.py``) talks to engine replicas
 over three tiny JSON surfaces, all strictly additive (the same
@@ -27,6 +30,7 @@ between router and replica degrades routing fidelity, never liveness.
 
 from __future__ import annotations
 
+from http.server import ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
 #: protocol revision carried in every frame (additive: a reader never
@@ -210,37 +214,173 @@ def load_score(load: Dict[str, Any]) -> int:
 # -- transport ---------------------------------------------------------
 
 
+class UpstreamError(OSError):
+    """A router->replica transport failure: the replica refused, reset
+    or cut the connection, or sent a garbled answer. It is an
+    ``OSError``, as ``requests``' ``ConnectionError`` and
+    ``ChunkedEncodingError`` are, so it lands on the reference's
+    ``except OSError`` branches; it is neither ``ConnectionResetError``
+    nor ``BrokenPipeError``, which the relays keep for their own
+    client's socket ("the client detached")."""
+
+
+def _io(fn: Any, *args: Any) -> Any:
+    """``fn(*args)`` on the upstream connection, with its failures
+    raised as ``UpstreamError``, except a read past the socket's
+    timeout, which stays ``socket.timeout`` (an ``OSError`` too). A
+    cut body is ``http.client.IncompleteRead``, not an ``OSError``; a
+    reset is the socket's own ``ConnectionResetError``."""
+    import http.client
+
+    try:
+        return fn(*args)
+    except TimeoutError:
+        raise
+    except (http.client.HTTPException, OSError) as e:
+        raise UpstreamError(f"{type(e).__name__}: {e}") from e
+
+
 def _send(
     method: str,
     url: str,
     frame: Optional[Dict[str, Any]] = None,
     timeout: float = 2.0,
 ) -> Any:
-    """One router->replica HTTP exchange over ``urllib``; returns the
-    decoded JSON document. Transport failures raise ``OSError`` (urllib's
-    ``URLError`` is one), so callers share one failure taxonomy with the
-    engine's transient-retry policy."""
+    """One router->replica JSON exchange over ``_open``; returns the
+    decoded JSON document with the answer's status as ``_status``.
+    A non-2xx answer is a *protocol* answer (404 = endpoint
+    unsupported, 503 = draining/warming), not a transport error:
+    callers branch on ``_status`` without exceptions. Transport
+    failures raise ``OSError``, so callers share one failure taxonomy
+    with the engine's transient-retry policy."""
     import json
-    import urllib.error
-    import urllib.request
 
-    data = None if method == "get" else json.dumps(frame).encode()
-    req = urllib.request.Request(
-        url, data=data, method=method.upper(),
-        headers={} if data is None else {"Content-Type": "application/json"},
+    body = None if method == "get" else json.dumps(frame).encode()
+    resp = _open(
+        method, url, body,
+        {} if body is None else {"Content-Type": "application/json"},
+        connect_timeout=timeout, read_timeout=timeout,
     )
     try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            status, body = resp.status, resp.read()
-    except urllib.error.HTTPError as e:
-        # non-2xx is a *protocol* answer (404 = endpoint unsupported,
-        # 503 = draining/warming), not a transport error: return it with
-        # the status attached so callers can branch without exceptions
-        status, body = e.code, e.read()
-    try:
-        doc = json.loads(body)
+        doc = json.loads(resp.content)
     except ValueError:
         doc = {}
     if isinstance(doc, dict):
-        doc.setdefault("_status", status)
+        doc.setdefault("_status", resp.status_code)
     return doc
+
+
+class UpstreamResponse:
+    """One router->replica answer over ``http.client``: ``status_code``,
+    ``headers`` and the body, read whole (``content``, ``json()``) or,
+    with ``stream=True``, as it arrives (``iter_lines()`` line by line,
+    ``iter_content()`` chunk by chunk). Non-2xx answers are answers, not
+    errors. A replica that cuts or resets the connection mid-body
+    raises ``UpstreamError`` (``_io``); a stall past the read timeout
+    raises ``socket.timeout``. Both are ``OSError``s, as ``requests``'
+    ``ChunkedEncodingError`` and ``ReadTimeout`` are."""
+
+    def __init__(self, conn: Any, resp: Any, stream: bool):
+        self.status_code = int(resp.status)
+        self.headers = resp.headers
+        self._conn = conn
+        self._resp = resp
+        self._content: Optional[bytes] = None
+        if not stream:
+            try:
+                self._content = _io(resp.read)
+            finally:
+                self.close()
+
+    @property
+    def content(self) -> bytes:
+        if self._content is None:
+            try:
+                self._content = _io(self._resp.read)
+            finally:
+                self.close()
+        return self._content
+
+    def json(self) -> Any:
+        import json
+
+        return json.loads(self.content)
+
+    def iter_lines(self):
+        """The body's lines without their line ends, each as soon as it
+        has arrived (``stream=True``)."""
+        try:
+            while True:
+                line = _io(self._resp.readline)
+                if not line:
+                    return
+                yield line.rstrip(b"\r\n")
+        finally:
+            self.close()
+
+    def iter_content(self, chunk_size: int = 65536):
+        """The body in the pieces it arrives in, at most ``chunk_size``
+        bytes each (``stream=True``)."""
+        try:
+            while True:
+                data = _io(self._resp.read1, chunk_size)
+                if not data:
+                    return
+                yield data
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self._resp.close()
+        self._conn.close()
+
+
+def _open(
+    method: str,
+    url: str,
+    body: Optional[bytes] = None,
+    headers: Optional[Dict[str, str]] = None,
+    connect_timeout: float = 5.0,
+    read_timeout: float = 600.0,
+    stream: bool = False,
+) -> UpstreamResponse:
+    """One router->replica request over ``http.client``. The connect
+    has ``connect_timeout``; every read after it ``read_timeout`` (the
+    socket's own timeout), so a silent replica raises within it. A
+    replica that is down or dies before answering raises
+    ``UpstreamError``."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    cls = (
+        http.client.HTTPSConnection
+        if u.scheme == "https"
+        else http.client.HTTPConnection
+    )
+    conn = cls(u.hostname, u.port, timeout=connect_timeout)
+    path = (u.path or "/") + (f"?{u.query}" if u.query else "")
+
+    def exchange() -> Any:
+        conn.connect()
+        conn.sock.settimeout(read_timeout)
+        conn.request(method.upper(), path, body=body, headers=headers or {})
+        return conn.getresponse()
+
+    try:
+        resp = _io(exchange)
+    except OSError:
+        conn.close()
+        raise
+    return UpstreamResponse(conn, resp, stream)
+
+
+class ListeningServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with a listen backlog for bursts (the
+    engine's server and the router): the accept loop is one Python
+    thread, and while an engine's worker holds the interpreter lock a
+    burst of clients waits in the kernel's accept queue, which
+    ``socketserver``'s default of 5 overflows (a kernel that aborts on
+    overflow resets the connection)."""
+
+    request_queue_size = 128

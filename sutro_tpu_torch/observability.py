@@ -11,14 +11,16 @@ The part of ``sutro_tpu/observability.py`` that the SDK calls:
   two-phase without local state;
 - all trace failures reduce to warnings.
 
-``langsmith`` is imported only once tracing is switched on. The JAX
-package's device-trace capture (``profile_trace`` over
-``jax.profiler``) is not here: device traces are a later slice
-(ROADMAP.md §1, "Device traces").
+``langsmith`` is imported only once tracing is switched on.
+
+``profile_trace`` captures a ``torch.profiler`` trace around a block
+when ``SUTRO_PROFILE=1`` (the JAX package's goes through
+``jax.profiler``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import logging
 import os
@@ -146,3 +148,41 @@ def _complete_batch_traces(
         client.batch_ingest_runs(update=updates)
     except Exception as e:
         logger.warning("batch trace complete failed: %s", e)
+
+
+# ---------------------------------------------------------------------------
+# Engine-level profiling
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def profile_trace(out_dir: Optional[str] = None):
+    """Capture a ``torch.profiler`` trace around a block when
+    ``SUTRO_PROFILE=1``, exported as Chrome trace-event JSON (Perfetto
+    or ``chrome://tracing``) to ``{out_dir}/trace-<pid>-<unix ms>.json``
+    (``out_dir`` defaults to ``$SUTRO_HOME/profiles``). The card's
+    kernels are recorded when a card is present; the CPU's ops always
+    (on this thread)."""
+    if os.environ.get("SUTRO_PROFILE") != "1":
+        yield
+        return
+    import time
+
+    import torch
+
+    from .engine.config import sutro_home
+    from .engine.profiling import _start
+
+    out = out_dir or str(sutro_home() / "profiles")
+    os.makedirs(out, exist_ok=True)
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    path = os.path.join(
+        out, "trace-%d-%d.json" % (os.getpid(), int(time.time() * 1e3))
+    )
+    prof = _start(path, device)
+    try:
+        yield
+    finally:
+        prof.stop()
+    prof.export_chrome_trace(path)
+    logger.info("profile trace written to %s", path)

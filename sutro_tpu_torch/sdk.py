@@ -25,8 +25,11 @@ engine's gateway locally (``engine_config={"interactive_slots": N}``),
 ``run_graph`` submits a stage graph (``engine/stagegraph.py``) as one
 job; ``get_monitor`` reads the live SLO monitor, locally or over HTTP.
 
-Not ported yet: locally ``get_job_fleet`` (it raises; ROADMAP.md §1,
-"Multi-GPU"), and the fleet router's getters ("Serving and fleet").
+``get_fleet``, ``get_fleet_monitor`` and ``get_replay_log`` read a fleet
+router (``fleet/router.py``; ``backend="fleet"``).
+
+Not ported yet: ``get_job_fleet`` (locally it raises, and a server
+answers 501; data-parallel engines, ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -1329,6 +1332,54 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         if self.backend == "remote":
             return self._remote_json("get", "get-quotas")["quotas"]
         return self.engine.get_quotas()
+
+    def get_fleet(self) -> Optional[Dict[str, Any]]:
+        """Fleet router snapshot (fleet/remote backend pointed at a
+        fleet router, ``fleet/router.py``): replica membership, breaker
+        states, failover counters, and the fleet doctor verdict. None
+        when the endpoint doesn't exist (single daemon / local backend)."""
+        if self.backend != "remote":
+            return None
+        resp = self.do_request("get", "fleet")
+        if resp.status_code == 404:
+            return None
+        resp.raise_for_status()
+        return resp.json().get("fleet")
+
+    def get_fleet_monitor(self) -> Optional[Dict[str, Any]]:
+        """Fleet SLO monitor snapshot from a fleet router: fleet-wide
+        windowed stats, rule states, alert events with exemplar trace
+        ids, and the fleet doctor verdict. None when the endpoint
+        doesn't exist (single daemon / local backend); raises
+        ``KeyError`` when the router answers but the monitor is
+        disabled. The router's 404 carries its reason under ``detail``
+        (the JAX SDK reads only ``error``, so there it returns None)."""
+        if self.backend != "remote":
+            return None
+        resp = self.do_request("get", "fleet-monitor")
+        if resp.status_code == 404:
+            try:
+                doc = resp.json()
+                detail = doc.get("detail") or doc.get("error") or ""
+            except (ValueError, AttributeError):
+                detail = ""
+            if "disabled" in str(detail):
+                raise KeyError(detail)
+            return None
+        resp.raise_for_status()
+        return resp.json().get("fleet_monitor")
+
+    def get_replay_log(self) -> Optional[List[Dict[str, Any]]]:
+        """Replayable records drained from a fleet router's trace ring
+        (``fleet/replay.py``'s record format). None when the endpoint
+        doesn't exist (single daemon / local backend)."""
+        if self.backend != "remote":
+            return None
+        resp = self.do_request("get", "replay-log")
+        if resp.status_code == 404:
+            return None
+        resp.raise_for_status()
+        return resp.json().get("records")
 
     def clear_job_results_cache(self) -> int:
         """Remove $SUTRO_HOME/job-results; returns the files removed."""

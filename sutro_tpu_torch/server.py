@@ -58,6 +58,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from .engine import faults
 from .engine.api import LocalEngine
+from .fleet.frames import ListeningServer
 from .interfaces import JobStatus
 
 logger = logging.getLogger(__name__)
@@ -806,7 +807,7 @@ def make_server(
     handler = type(
         "BoundEngineHandler", (EngineHTTPHandler,), {"engine": engine}
     )
-    server = ThreadingHTTPServer((host, port), handler)
+    server = ListeningServer((host, port), handler)
     server.verbose = verbose  # type: ignore[attr-defined]
     server.draining = False  # type: ignore[attr-defined]
     server.daemon_threads = True

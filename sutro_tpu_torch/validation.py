@@ -1,6 +1,7 @@
 """Config discovery and bootstrap checks.
 
-A copy of ``sutro_tpu/validation.py``. The engine is local-first: an
+A copy of ``sutro_tpu/validation.py`` (its version lookup over
+``urllib``, not ``requests``). The engine is local-first: an
 API key is optional (only needed when a client points at a remote
 ``base_url``), so discovery never errors — it returns ``None`` and the
 SDK runs against the in-process engine. The PyPI version check is kept
@@ -56,11 +57,11 @@ def check_version(timeout: float = 2.0) -> Optional[str]:
     if os.environ.get("SUTRO_CHECK_VERSION") != "1":
         return None
     try:  # pragma: no cover - requires network
-        import requests
+        import urllib.request
 
-        resp = requests.get(
+        with urllib.request.urlopen(
             "https://pypi.org/pypi/sutro/json", timeout=timeout
-        )
-        return resp.json()["info"]["version"]
+        ) as resp:
+            return json.loads(resp.read())["info"]["version"]
     except Exception:
         return None

@@ -20,6 +20,7 @@ outputs, the higher-priority job first).
 import time
 
 import pytest
+import torch
 
 from sutro_tpu.common import MODEL_CATALOG as JAX_CATALOG
 from sutro_tpu.engine import api as jax_api
@@ -32,6 +33,14 @@ from sutro_tpu_torch.engine import api, jobstore
 from sutro_tpu_torch.engine.config import EngineConfig
 from sutro_tpu_torch.templates.classification import _prompt_and_schema
 from tests.test_torch_weights_loader import write_hf_checkpoint
+
+# One intra-op thread for the port's CPU runs: under pytest-xdist every
+# worker is a process with torch's default of one thread a core, and the
+# port's many small ops then wait on threads that are not scheduled (on
+# an 8-core host a 12-row, 40-token tiny-dense job took 0.5 s alone and
+# 84 s in each of six such processes at once; 0.5 s with one thread).
+# Every worker collects this module, so the setting holds in each.
+torch.set_num_threads(1)
 
 ENGINE = dict(
     kv_page_size=8, max_pages_per_seq=16, decode_batch_size=4,
@@ -272,14 +281,57 @@ def _solo(engines, p):
     return tr["outputs"]
 
 
-def test_cancel_then_resume_gives_the_uncancelled_outputs(engines):
+DECODE_ENTRIES = ("decode_step", "decode_multi", "decode_multi_async", "decode_window")
+
+
+def hold_decode(monkeypatch, eng, engine_key="tiny-dense"):
+    """Hold every decode call of ``eng``'s resident ``engine_key`` runner
+    until the returned event is set; ``go.calls`` counts the calls that
+    reached the hold."""
+    import threading
+
+    runner = eng._runner_cache[engine_key][0]
+    go = threading.Event()
+
+    go.calls = 0
+
+    def held(real):
+        def call(*a, **k):
+            go.calls += 1
+            go.wait(120)
+            return real(*a, **k)
+        return call
+
+    for name in DECODE_ENTRIES:
+        if hasattr(runner, name):
+            monkeypatch.setattr(runner, name, held(getattr(runner, name)))
+    return go
+
+
+def test_cancel_then_resume_gives_the_uncancelled_outputs(engines, monkeypatch):
     p = payload([f"resume row {i}" for i in range(12)], max_new=40)
     want = _solo(engines, p)
     for eng in engines:
+        # the cancel lands while the job's worker is held inside its
+        # first decode call. A cancel that lands earlier (the job is
+        # RUNNING from before its batcher's first cancel poll, and a
+        # loaded host can take seconds to its first decode) is seen at
+        # that poll, and the JAX worker's CANCELLED can then race the
+        # cancel's own CANCELLING write and lose, leaving the job
+        # CANCELLING (sutro_tpu/engine/api.py:565-577)
+        go = hold_decode(monkeypatch, eng)
         jid = eng.submit_batch_inference(p)
-        wait(eng, jid, until=("RUNNING",) + TERMINAL)
-        eng.cancel_job(jid)
-        # 12 rows x 40 tokens outlast the cancel by far
+        try:
+            deadline = time.monotonic() + 120
+            while go.calls == 0:
+                status = eng.job_status(jid)
+                assert status not in TERMINAL, f"{jid} {status} before its first decode"
+                assert time.monotonic() < deadline, f"{jid} reached no decode ({status})"
+                time.sleep(0.01)
+            assert eng.job_status(jid) == "RUNNING"
+            eng.cancel_job(jid)
+        finally:
+            go.set()
         assert wait(eng, jid, until=("CANCELLED", "SUCCEEDED")) == "CANCELLED"
         let_go(eng, jid)
         res = eng.resume_job(jid)

@@ -190,6 +190,10 @@ def test_getters_after_an_embedding_job(engine):
 
 
 def test_diagnose_grades_an_h100_runner_against_its_row(engine):
+    # the engine builds its tiny-emb runner at its first tiny-emb job
+    # (this test may run without the one above, on another xdist worker)
+    jid = engine.submit_batch_inference({"model": "tiny-emb", "inputs": ["warm"]})
+    assert wait(engine, jid) == "SUCCEEDED"
     runner = engine._runner_cache["tiny-emb"][0]
     real = runner.device_info
     mp = pytest.MonkeyPatch()

@@ -16,7 +16,12 @@
 - with the same packages blocked, a stage graph with an ELO sink runs
   through ``so.run_graph`` on an engine with the control plane and the
   live monitor on, ``so.get_monitor`` reads the monitor and its
-  ``enforcement`` section, and ``GET /monitor/stream`` streams ticks.
+  ``enforcement`` section, and ``GET /monitor/stream`` streams ticks;
+- with the same packages blocked, two engines behind the port's fleet
+  router take a routed job (its progress relayed as NDJSON), a routed
+  chat streams, the SDK's fleet getters answer, a captured record
+  replays, and a job traced under ``profile_dir`` writes its trace;
+- no file of the port imports ``requests``.
 """
 
 import ast
@@ -84,6 +89,13 @@ MODULES = (
     "sutro_tpu_torch.engine.control",
     "sutro_tpu_torch.engine.stagegraph",
     "sutro_tpu_torch.telemetry.monitor",
+    "sutro_tpu_torch.engine.profiling",
+    "sutro_tpu_torch.fleet.membership",
+    "sutro_tpu_torch.fleet.health",
+    "sutro_tpu_torch.fleet.affinity",
+    "sutro_tpu_torch.fleet.obs",
+    "sutro_tpu_torch.fleet.replay",
+    "sutro_tpu_torch.fleet.router",
 )
 
 
@@ -247,6 +259,88 @@ def test_stage_graphs_control_and_monitor_run_without_the_card_machines_missing_
     )
     assert out.returncode == 0, out.stderr
     assert "GRAPH_OK" in out.stdout
+
+
+def test_the_fleet_routes_without_the_card_machines_missing_packages(tmp_path):
+    code = (
+        "import sys, json, os\n"
+        f"for m in {FORBIDDEN + ABSENT_ON_CARD!r}:\n"
+        "    sys.modules[m] = None\n"
+        "from sutro_tpu_torch.engine.api import LocalEngine\n"
+        "from sutro_tpu_torch.engine.config import EngineConfig\n"
+        "from sutro_tpu_torch.server import start_server_thread\n"
+        "from sutro_tpu_torch.sdk import Sutro\n"
+        "from sutro_tpu_torch import fleet\n"
+        "from sutro_tpu_torch.fleet import replay\n"
+        "cfg = dict(kv_page_size=8, max_pages_per_seq=8, decode_batch_size=2,\n"
+        "    max_model_len=64, param_dtype='float32', interactive_slots=1)\n"
+        "prof = os.path.join(os.environ['SUTRO_HOME'], 'prof')\n"
+        "engs = [LocalEngine(EngineConfig(profile_dir=prof, **cfg), device='cpu'),\n"
+        "        LocalEngine(EngineConfig(**cfg), device='cpu')]\n"
+        "srvs = [start_server_thread(e) for e in engs]\n"
+        "router, fsrv, _, furl = fleet.start_fleet_thread([s[2] for s in srvs],\n"
+        "    probe_interval=0.1)\n"
+        "import time\n"
+        "t0 = time.monotonic()\n"
+        "while router.membership.snapshot()['n_healthy'] != 2:\n"
+        "    assert time.monotonic() - t0 < 30\n"
+        "    time.sleep(0.05)\n"
+        "c = Sutro(backend='fleet', base_url=furl)\n"
+        "jid = c.infer(['one row'], model='tiny-dense', stay_attached=False,\n"
+        "    sampling_params={'temperature': 0.0, 'max_new_tokens': 3})\n"
+        "assert router.job_owner(jid) == 'r0'\n"
+        "ups = [u for u in c._iter_progress(jid) if u['update_type'] == 'progress']\n"
+        "assert c.get_job_status(jid) == 'SUCCEEDED' and ups[-1]['result'] == 1, ups\n"
+        "res = c._remote_json('post', 'job-results', json={'job_id': jid})['results']\n"
+        "assert len(res['outputs']) == 1, res\n"
+        "t0 = time.monotonic()\n"
+        "while not os.path.exists(os.path.join(prof, jid, 'trace.json')):\n"
+        "    assert time.monotonic() - t0 < 30\n"
+        "    time.sleep(0.05)\n"
+        "chunks = list(c.chat('hi', model='tiny-dense', stream=True, max_tokens=3))\n"
+        "assert chunks[-1]['choices'][0]['finish_reason'], chunks\n"
+        "assert c.get_fleet()['n_healthy'] == 2\n"
+        "recs = c.get_replay_log()\n"
+        "assert len(recs) == 1 and recs[0]['kind'] == 'chat', recs\n"
+        "out = replay.replay(furl, recs, timeout=60)\n"
+        "assert out['ok'] == 1, out\n"
+        "router.stop(); fsrv.shutdown()\n"
+        "for s, e in zip(srvs, engs):\n"
+        "    s[0].shutdown()\n"
+        "    assert e.close()\n"
+        "for m in " + repr(ABSENT_ON_CARD) + ":\n"
+        "    assert sys.modules[m] is None, m\n"
+        "print('FLEET_OK')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "SUTRO_HOME": str(tmp_path / "home"),
+           "SUTRO_MONITOR": "0"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "FLEET_OK" in out.stdout
+
+
+def _imported_tops(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            yield n.split(".")[0], n
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_of_the_port_imports_requests(path):
+    """The card's machine has no ``requests``: the remote SDK, the fleet
+    router and replay speak ``urllib`` and ``http.client``."""
+    for top, n in _imported_tops(path):
+        assert top != "requests", f"{path}: imports {n}"
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
