@@ -146,7 +146,28 @@ Phases, in order; any failure raises and exits non-zero:
    ``so.get_replay_log`` replayed through ``fleet.replay``; a split
    decode behind S on the survivor's runner. A ``serve9 summary`` line
    follows serve 8's;
-8. serve 8, after serve 9's engines are closed: stage graphs, the control
+8. serve 10, after serve 9's engines are closed, on the same checkpoint
+   (``serve_dp``): data-parallel engine ranks. Two processes of this
+   script (``--dp-rank 0`` and ``1``, ``SUTRO_DP_WORLD=2`` on a free
+   local port), each a ``LocalEngine`` at serve 9's geometry loading
+   qwen3-8b from the checkpoint and qwen-3-embedding-0.6b from one
+   written here, each behind ``start_server_thread``; every job's
+   payload goes to both through the remote SDK. Job G: 256 rows under
+   serve 7's S, 32 tokens, greedy; rank 0's merged results must hold
+   every row once in input order, its telemetry document rank 1's
+   spans and counters, the doctor a verdict over both processes and
+   the fleet view both ranks. Job E: 1,024 embeddings through the dp
+   branch, every row once. Job K: 384 rows; once rank 0's live fleet
+   view shows 64 of rank 1's rows merged rank 1 is SIGKILLed, and K
+   must end SUCCEEDED on rank 0 with every row once and rank 1 lost
+   with rows requeued in the fleet view and ``fleet.json``. Each rank's
+   launch counters (rank 1's before its kill) must show paged decode,
+   its carry option, the prefix carry, the page write and flash
+   prefill. Then one engine here, at serve 1's geometry, runs the same
+   rows: the token-equal share of G and K and E's largest difference
+   and lowest cosine are printed. A ``serve10 summary`` line follows
+   serve 9's;
+9. serve 8, after serve 10's ranks have exited: stage graphs, the control
    plane and the live monitor on gpt-oss-20b (24 layers, H=2,880, 64/8
    heads of 64, sinks, a 128-token window on every other layer, 32
    experts top-4; random weights from the seed, 41.8 GB) through
@@ -158,7 +179,7 @@ Phases, in order; any failure raises and exits non-zero:
    logits and a split decode (layers 0 and 1) against their plain
    versions, a MoE forward replaying the kernel run's expert choices
    (``routing``). A ``serve8 summary`` line follows serve 7's;
-9. serve 6, after serve 8's engine is closed: embedding jobs through
+10. serve 6, after serve 8's engine is closed: embedding jobs through
    the façade on ``qwen-3-embedding-0.6b`` (28 layers, H=1024, 16/8
    heads; random weights from the seed) at serve 1's geometry (batches
    of 64 rows). Job E1: 4,096 rows of 16-1,024 tokens written as two
@@ -177,7 +198,7 @@ Phases, in order; any failure raises and exits non-zero:
    against the H100 row and ``so.get_trace(E1)`` give trace events. It
    prints each job's rows/s and input tok/s, the jobstore's flush and
    finalize ms and the bytes of JSON written;
-10. serve 2, after serve 6's runner is freed: a templated batch job on
+11. serve 2, after serve 6's runner is freed: a templated batch job on
    ``qwen3-30b-a3b`` (MoE, 128 experts) at full width and depth with
    ``prefix_split=True``: 96 requests sharing a 1,024-token template.
    Every row must finish, the grouped GEMM, the prefix carry, the
@@ -192,7 +213,7 @@ Phases, in order; any failure raises and exits non-zero:
    without the prefix groups, and a fused window with
    the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
-11. serve 4, on serve 2's runner after serve 2's job (the model is not
+12. serve 4, on serve 2's runner after serve 2's job (the model is not
    loaded again): a schema-constrained templated job of 96 rows, one
    shared 1,024-token template with the classify system prompt at its
    head and a 16-256-token suffix each, at most 128 new tokens: 64
@@ -208,7 +229,7 @@ Phases, in order; any failure raises and exits non-zero:
    forward's logits at each row's first position must match the
    decode forward's (two sets of 8 rows). It prints the mask core
    (native or Python) and the host time spent on masks;
-12. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+13. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
    16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
    past). Every row must finish, the int8 paged decode and flash
@@ -229,7 +250,9 @@ available. ``python3 chip_smoke.py --kernels-only`` stops after phase 3
 (and prints neither record); ``--serve8-only`` runs serve 8 after it
 and prints serve 8's summary, not the records; ``--serve9-only`` runs
 the build, then serve 9 alone on a qwen3-8b checkpoint it writes from
-the seed, and prints serve 9's summary. ``python3 chip_smoke.py --pair-timing
+the seed, and prints serve 9's summary; ``--serve10-only`` does the same
+for serve 10. ``--dp-rank N`` is serve 10's rank process (``dp_rank``),
+which serve 10 starts. ``python3 chip_smoke.py --pair-timing
 [--package DIR]`` only times the prefix carry and the grouped GEMM
 through their wrappers and prints one JSON line; with ``--package`` the
 ``sutro_tpu_torch`` under DIR (a parent commit's ``git archive``) is
@@ -4476,6 +4499,489 @@ def serve_embed(torch, kernels, absent, card: str, home: Path, seed: int = 0,
     return out
 
 
+def _port_kernels():
+    """Every kernel wrapper of the port (their launch counters)."""
+    from sutro_tpu_torch.ops import (
+        flash_prefill, grouped_matmul, kv_write, paged_decode, prefix_carry,
+    )
+
+    return (paged_decode.KERNEL, paged_decode.CARRY, paged_decode.INT8, prefix_carry.KERNEL,
+            kv_write.KERNEL, flash_prefill.KERNEL, grouped_matmul.KERNEL)
+
+
+# each of serve 10's two ranks may hold this share of the card, 38.4 GiB
+# of an H100's 79.2: 29.4 GiB of weights and pools (qwen3-8b and
+# qwen-3-embedding-0.6b at 32 rows of DP_PAGES pages), the rest for
+# activations (an embedding batch's K/V stack is 3.5 GiB), leaving room
+# for the three processes' CUDA contexts
+DP_MEMORY_FRACTION = 0.485
+# 1,664 tokens a row: S (~1,060 tokens with the chat template), a
+# 500-character row and 32 new tokens
+DP_PAGES = 26
+
+
+def dp_rank(args) -> int:
+    """``chip_smoke.py --dp-rank N --device D --models A,B``: one rank of
+    serve 10, a process of its own (``SUTRO_DP_WORLD``, ``SUTRO_DP_RANK``
+    and ``SUTRO_DP_COORD`` in its environment, ``$SUTRO_HOME/engine.json``
+    its engine). It builds the engine's runners for the models (loaded
+    from ``weights_dir``), zeroes every kernel's launch counter, serves
+    the engine over HTTP and prints one ``ready`` line with its URL,
+    build seconds, device bytes and a digest of its weights'
+    ``leaf_checksums``. Until ``$SUTRO_HOME/stop`` appears (or its parent
+    is gone) it writes the counters to ``$SUTRO_HOME/launches.json``
+    every 0.1 s; then it prints them and exits."""
+    import faulthandler
+    import hashlib
+    import logging
+    import os
+    import signal
+
+    import torch
+
+    from sutro_tpu_torch.engine import api
+    from sutro_tpu_torch.engine.config import load_engine_config
+    from sutro_tpu_torch.engine.runner import set_matmul_precision
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+    from sutro_tpu_torch.server import start_server_thread
+
+    rank = int(args[args.index("--dp-rank") + 1])
+    device = args[args.index("--device") + 1]
+    models = args[args.index("--models") + 1].split(",")
+    tag = f"serve10-rank{rank}"
+    home = Path(os.environ["SUTRO_HOME"])
+    parent = os.getppid()
+    # SIGUSR1 prints every thread's stack (serve 10 asks before it gives
+    # up on a rank), and the channel's own log lines go to the log too
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    logging.basicConfig(level=logging.INFO, format=f"{tag} %(name)s: %(message)s")
+    if device != "cpu":
+        # two ranks share the card: each caps its allocator, so that the
+        # blocks one process caches cannot starve the other's next job
+        torch.cuda.set_per_process_memory_fraction(DP_MEMORY_FRACTION)
+    set_matmul_precision()
+    kernels = _port_kernels()
+    eng = api.LocalEngine(load_engine_config(), device=device)
+    t0 = time.monotonic()
+    digest = hashlib.sha256()
+    for m in models:
+        runner = eng._get_runner(m, MODEL_CONFIGS[m])[0]
+        digest.update(json.dumps(sorted(leaf_checksums(torch, runner.params).items())).encode())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ready = {"build_s": time.monotonic() - t0, "weights_digest": digest.hexdigest()[:16],
+             "allocated_bytes": torch.cuda.memory_allocated() if device != "cpu" else 0}
+    for k in kernels:
+        k.launches = 0
+    srv, _, url = start_server_thread(eng)
+    print(f"{tag}: ready " + json.dumps({"url": url, **ready}), flush=True)
+    counts_path = home / "launches.json"
+
+    def dump():
+        tmp = counts_path.with_suffix(".tmp")
+        tmp.write_text(json.dumps({k.name: k.launches for k in kernels}))
+        tmp.replace(counts_path)
+
+    try:
+        while not (home / "stop").exists():
+            if os.getppid() != parent:
+                raise SystemExit(f"{tag}: the parent process is gone")
+            dump()
+            time.sleep(0.1)
+    finally:
+        dump()
+        srv.shutdown()
+        srv.server_close()
+        eng.close(timeout=60)
+    print(f"{tag}: launches " + counts_path.read_text(), flush=True)
+    if device != "cpu":
+        print(f"{tag}: peak device bytes " + json.dumps({
+            "allocated": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.max_memory_reserved()}), flush=True)
+    return 0
+
+
+def embed_checkpoint(torch, root: Path, model: str = EMBED_MODEL, device="cuda",
+                     geometry=None, seed: int = 0) -> dict:
+    """The embedding model's random weights from the seed, written under
+    ``root`` as serve 5 writes qwen3-8b's (serve 10's ranks load it)."""
+    import gc
+
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.runner import ModelRunner
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    mcfg = MODEL_CONFIGS[model]
+    # weights only (a small pool), in the checkpoint's bfloat16
+    geometry = dict(geometry or ENGINES[model][0], decode_batch_size=1, param_dtype="bfloat16")
+    runner = ModelRunner(mcfg, EngineConfig(**geometry, seed=seed), device=device)
+    t0 = time.monotonic()
+    ckpt = write_checkpoint(torch, runner.params, mcfg, root / mcfg.name)
+    ckpt["write_s"] = time.monotonic() - t0
+    del runner
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return ckpt
+
+
+def serve_dp(torch, kernels, absent, card: str, ckpt_root: Path, *, model="qwen3-8b",
+             embed_model=EMBED_MODEL, device="cuda", geometry=None, ref_geometry=None,
+             n_gen=256, n_kill=384, n_emb=1024, n_new=32, kill_after=64,
+             system_chars=1000, rank_env=None, timeout=300, seed=0) -> dict:
+    """Serve 10: one batch job across two data-parallel engine ranks
+    (``engine/dphost.py``), each a process of its own on the same card
+    (``dp_rank``), both loading ``model`` from the checkpoint serve 5
+    wrote (``ckpt_root``) and ``embed_model`` from one written here, at
+    serve 9's geometry (``decode_batch_size`` 32, an admission budget of
+    the pool's tokens, ``prefix_split``) with rows of ``DP_PAGES`` pages,
+    each process capped at ``DP_MEMORY_FRACTION`` of the card. Rank 0 coordinates on a free
+    local port. Every job's payload goes to both ranks through the
+    remote SDK, as a launcher of rank processes would send it.
+
+    - Job G: ``n_gen`` rows of 16-500 characters under serve 7's system
+      prompt S (a prefix group on both ranks: the carry kernels), ``n_new``
+      tokens, greedy. Rank 0's merged results must hold every row once in
+      input order; its telemetry document a ``workers`` section of rank
+      1 with spans and counters; ``diagnose_job`` a verdict over both
+      processes; ``get_job_fleet`` both ranks.
+    - Job E: ``n_emb`` rows through the embedding job's dp branch: every
+      row once, every vector finite.
+    - Job K: ``n_kill`` rows with no system prompt. Once rank 0's live
+      fleet view shows ``kill_after`` of rank 1's rows merged, rank 1's
+      process is killed (SIGKILL): K must end SUCCEEDED on rank 0 with
+      every row once, rank 1 ``lost`` in the fleet view and in
+      ``fleet.json``, and at least one row requeued.
+    - The single-host reference: after the ranks exit, one
+      ``LocalEngine`` in this process (``ref_geometry``, no ``SUTRO_DP_*``
+      variable) runs G's, K's and E's rows, submitted together (K
+      attaches to G's session): the share of G's and K's rows
+      with equal tokens, and E's largest absolute difference and lowest
+      cosine, are printed (not held: bf16 at another batch composition
+      may flip near-ties).
+
+    Each rank's launch counters are read from its ``launches.json``
+    (rank 1's last before its kill): ``kernels`` must launch on both
+    ranks, ``absent`` on neither (both empty on the CPU). A rank that
+    fails, hangs past ``timeout`` or exits non-zero (but for the kill)
+    fails the serve; no rank outlives it."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import threading
+
+    from sutro_tpu_torch.engine import api
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.jobstore import JobStore
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+    from sutro_tpu_torch.sdk import Sutro
+
+    t_start = time.monotonic()
+    catalog = {"qwen3-8b": "qwen-3-8b", EMBED_MODEL: "qwen-3-embedding-0.6b"}
+    gen_name, emb_name = catalog.get(model, model), catalog.get(embed_model, embed_model)
+    if geometry is None:
+        # serve 9's (serve 1's geometry at half its slots), with rows of
+        # DP_PAGES pages: each rank also holds the embedding model, whose
+        # pool takes the same geometry
+        geometry = dict(ENGINES[model][0], max_pages_per_seq=DP_PAGES)
+        geometry["decode_batch_size"] //= 2
+        geometry["max_model_len"] = DP_PAGES * geometry["kv_page_size"]
+    base = dict(geometry, prefix_split=True, weights_dir=str(ckpt_root), seed=seed,
+                max_batch_tokens=geometry["decode_batch_size"] * geometry["max_model_len"])
+    emb_ckpt = embed_checkpoint(torch, ckpt_root, embed_model, device, geometry, seed)
+    print(f"serve10: {embed_model} checkpoint of {emb_ckpt['bytes'] / 1e9:.2f} GB written in "
+          f"{emb_ckpt['write_s']:.1f}s", flush=True)
+    rng = np.random.default_rng(seed + 10)
+    text = lambda r, n: "".join(r.choice(ALPHABET, int(n)))  # noqa: E731
+    system = online_system_prompt(np.random.default_rng(seed + 7), system_chars)
+    rows_g = [text(rng, n) for n in rng.integers(16, 501, n_gen)]
+    rows_k = [text(rng, n) for n in rng.integers(16, 501, n_kill)]
+    rows_e = [text(rng, n) for n in rng.integers(16, 501, n_emb)]
+    sampling = {"temperature": 0.0, "max_new_tokens": n_new}
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    smoke_home = Path(os.environ["SUTRO_HOME"])
+    homes, procs, readers, lines = [], [], [], [[], []]
+    ready = [threading.Event(), threading.Event()]
+
+    def read(r, proc):
+        with open(homes[r] / "rank.log", "w") as log:
+            for line in proc.stdout:
+                log.write(line)
+                log.flush()
+                lines[r].append(line.rstrip("\n"))
+                if line.startswith(f"serve10-rank{r}:"):
+                    print(line.rstrip("\n"), flush=True)
+                    if ": ready " in line:
+                        ready[r].set()
+
+    def give_up(message):
+        """The ranks' stacks and their logs' tails, then the failure."""
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGUSR1)
+        time.sleep(2.0)
+        for r in range(len(procs)):
+            print(f"serve10: rank {r}'s log, last 60 lines:\n" + "\n".join(lines[r][-60:]),
+                  flush=True)
+        raise AssertionError(message)
+
+    def wait_for(pred, what, limit=timeout, status=None):
+        t0 = deadline = time.monotonic()
+        deadline += limit
+        said = t0
+        while not pred():
+            for r, p in enumerate(procs):
+                if p.poll() is not None and not ended.get(r):
+                    give_up(f"serve10: rank {r} exited {p.returncode} while waiting for {what}")
+            now = time.monotonic()
+            if now > deadline:
+                give_up(f"serve10: timed out waiting for {what}")
+            if status is not None and now - said > 30:
+                said = now
+                print(f"serve10: {now - t0:.0f}s waiting for {what}: {status()}", flush=True)
+            time.sleep(0.05)
+
+    def launches(r):
+        return json.loads((homes[r] / "launches.json").read_text())
+
+    ended, out = {}, {"card": card}   # ranks whose exit is expected
+    try:
+        for r in range(2):
+            home_r = smoke_home / f"dp-rank{r}"
+            home_r.mkdir(parents=True, exist_ok=True)
+            (home_r / "engine.json").write_text(json.dumps(base))
+            homes.append(home_r)
+            env = dict(os.environ, SUTRO_HOME=str(home_r), SUTRO_DP_WORLD="2",
+                       SUTRO_DP_RANK=str(r), SUTRO_DP_COORD=f"127.0.0.1:{port}",
+                       SUTRO_MONITOR="0", PYTHONUNBUFFERED="1",
+                       PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+                       **(rank_env or {}).get(r, {}))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(r),
+                 "--device", device, "--models", f"{model},{embed_model}"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
+            readers.append(threading.Thread(target=read, args=(r, procs[r]), daemon=True))
+            readers[r].start()
+        wait_for(lambda: all(e.is_set() for e in ready), "both ranks ready")
+        info = [json.loads(next(x for x in lines[r] if ": ready " in x).split(": ready ", 1)[1])
+                for r in range(2)]
+        out["ranks_ready_s"] = time.monotonic() - t_start
+        out["ranks"] = info
+        if info[0]["weights_digest"] != info[1]["weights_digest"]:
+            raise AssertionError(f"serve10: the ranks hold different weights: {info}")
+        clients = [Sutro(backend="remote", base_url=i["url"], api_key="smoke") for i in info]
+        store0 = JobStore(root=homes[0] / "jobs")
+
+        def run_job(rows, name, **kw):
+            """The payload to rank 1, then rank 0; (rank 0's id, rank 1's
+            id, the seconds from the submit to rank 0's SUCCEEDED)."""
+            t0 = time.monotonic()
+            jid1, jid0 = (c.infer(rows, model=name, stay_attached=False, **kw)
+                          for c in clients[::-1])
+            return jid0, jid1, t0
+
+        def finish(jid0, jid1, t0, what):
+            def status():
+                return {"rank0": clients[0].get_job_status(jid0),
+                        "rank1": None if ended.get(1) else clients[1].get_job_status(jid1),
+                        "fleet": {k: v for k, v in clients[0].get_job_fleet(jid0).items()
+                                  if k in ("rows", "ranks", "counters")}}
+
+            wait_for(lambda: clients[0].get_job_status(jid0) in ("SUCCEEDED", "FAILED",
+                                                                 "CANCELLED"), what,
+                     status=status)
+            wall = time.monotonic() - t0
+            if clients[0].get_job_status(jid0) != "SUCCEEDED":
+                give_up(f"serve10: {what} ended {clients[0]._fetch_job(jid0)}")
+            return wall
+
+        def merged(jid0, n, what):
+            res = store0.read_results(jid0)
+            ids = list(res["row_id"])
+            lost = n - len(set(ids) & set(range(n)))
+            dup = len(ids) - len(set(ids))
+            if lost or dup or ids != list(range(n)) or any(o is None for o in res["outputs"]):
+                raise AssertionError(f"serve10: {what}: {lost} rows lost, {dup} duplicated, "
+                                     f"in order {ids == sorted(ids)}")
+            return res["outputs"], {"rows_lost": lost, "rows_duplicated": dup}
+
+        # -- job G: generation under S on both ranks ---------------------------
+        jid0, jid1, t0 = run_job(rows_g, gen_name, system_prompt=system, sampling_params=sampling)
+        wall = finish(jid0, jid1, t0, "job G")
+        wait_for(lambda: clients[1].get_job_status(jid1) == "SUCCEEDED", "rank 1's part of G")
+        outs_g, ok_g = merged(jid0, n_gen, "job G")
+        tele = clients[0].get_job_telemetry(jid0)
+        workers = [w for w in tele.get("workers", []) if w.get("rank") == 1]
+        diag = clients[0].diagnose_job(jid0)
+        fleet_g = clients[0].get_job_fleet(jid0)
+        rank1_rows = (workers[0].get("counters") or {}).get("rows_ok", 0) if workers else 0
+        out["g"] = {"rows": n_gen, "wall_s": wall, "rows_per_s": n_gen / wall, **ok_g,
+                    "rank_rows": [n_gen - rank1_rows, rank1_rows],
+                    "worker_spans": len(workers[0].get("spans", [])) if workers else 0,
+                    "worker_counters": workers[0].get("counters") if workers else None,
+                    "stages": tele.get("stages"), "verdict": diag.get("verdict"),
+                    "doctor_processes": sorted(diag.get("processes") or {}),
+                    "fleet_ranks": sorted(fleet_g.get("ranks") or {}),
+                    "fleet_rows": fleet_g.get("rows")}
+        print("serve10: job G " + json.dumps(out["g"]), flush=True)
+        if (len(workers) != 1 or not out["g"]["worker_spans"] or not rank1_rows
+                or diag.get("verdict") in (None, "insufficient_data")
+                or out["g"]["doctor_processes"] != ["rank0", "rank1"]
+                or out["g"]["fleet_ranks"] != ["0", "1"]
+                or fleet_g["rows"]["done"] != n_gen):
+            raise AssertionError(f"serve10: job G's dp surfaces: {out['g']}")
+
+        # -- job E: embeddings through the dp branch ---------------------------
+        jid0, jid1, t0 = run_job(rows_e, emb_name)
+        wall = finish(jid0, jid1, t0, "job E")
+        wait_for(lambda: clients[1].get_job_status(jid1) == "SUCCEEDED", "rank 1's part of E")
+        outs_e, ok_e = merged(jid0, n_emb, "job E")
+        vecs = np.asarray(outs_e, np.float32)
+        fleet_e = clients[0].get_job_fleet(jid0)
+        workers = [w for w in clients[0].get_job_telemetry(jid0).get("workers", [])
+                   if w.get("rank") == 1]
+        rank1_rows = (workers[0].get("counters") or {}).get("rows_ok", 0) if workers else 0
+        out["e"] = {"rows": n_emb, "wall_s": wall, "rows_per_s": n_emb / wall, **ok_e,
+                    "dim": int(vecs.shape[1]), "fleet_ranks": sorted(fleet_e.get("ranks") or {}),
+                    "rank_rows": [n_emb - rank1_rows, rank1_rows]}
+        if (not np.isfinite(vecs).all() or out["e"]["fleet_ranks"] != ["0", "1"]
+                or not rank1_rows):
+            raise AssertionError(f"serve10: job E: {out['e']}")
+        print("serve10: job E " + json.dumps(out["e"]), flush=True)
+        launches_pre_k = [launches(0), launches(1)]
+
+        # -- job K: rank 1 killed mid-job --------------------------------------
+        jid0, jid1, t0 = run_job(rows_k, gen_name, sampling_params=sampling)
+        assigned1 = len(range(1, n_kill, 2))
+
+        at_kill = {}
+
+        def rank1_merged():
+            f = clients[0].get_job_fleet(jid0)
+            r1 = (f.get("ranks") or {}).get("1")
+            if clients[0].get_job_status(jid0) == "SUCCEEDED":
+                raise AssertionError(f"serve10: job K ended before rank 1's kill: {f}")
+            at_kill.update(f)
+            return r1 is not None and assigned1 - r1["rows_remaining"] >= kill_after
+
+        wait_for(rank1_merged, f"{kill_after} of rank 1's rows of K merged")
+        rank1_launches = launches(1)
+        ended[1] = True
+        procs[1].send_signal(signal.SIGKILL)
+        t_kill = time.monotonic()
+        procs[1].wait(timeout=60)
+        wall = finish(jid0, jid1, t0, "job K after rank 1's kill")
+        t_done = time.monotonic()
+        outs_k, ok_k = merged(jid0, n_kill, "job K")
+        fleet_k = clients[0].get_job_fleet(jid0)
+        disk = json.loads((homes[0] / "jobs" / jid0 / "fleet.json").read_text())
+        out["k"] = {"rows": n_kill, "wall_s": wall, "rows_per_s": n_kill / wall, **ok_k,
+                    "kill_after_rows": kill_after, "kill_to_succeeded_s": t_done - t_kill,
+                    "rank1_state": fleet_k["ranks"]["1"]["state"],
+                    "rank1_state_on_disk": disk["ranks"]["1"]["state"],
+                    "counters": fleet_k["counters"],
+                    # rank 1's merged rows as the view showed them at the kill
+                    "rank_rows": [n_kill - (assigned1 - at_kill["ranks"]["1"]["rows_remaining"]),
+                                  assigned1 - at_kill["ranks"]["1"]["rows_remaining"]]}
+        print("serve10: job K " + json.dumps(out["k"]), flush=True)
+        if (out["k"]["rank1_state"] != "lost" or out["k"]["rank1_state_on_disk"] != "lost"
+                or fleet_k["counters"]["requeued_rows"] < 1 or disk["counters"]["requeued_rows"] < 1):
+            raise AssertionError(f"serve10: job K's fleet view after the kill: {out['k']}")
+
+        # -- the ranks' ends ---------------------------------------------------
+        (homes[0] / "stop").write_text("")
+        ended[0] = True
+        procs[0].wait(timeout=120)
+        if procs[0].returncode != 0:
+            raise AssertionError(f"serve10: rank 0 exited {procs[0].returncode}: "
+                                 + "\n".join(lines[0][-30:]))
+        out["launches_by_rank"] = {"rank0": launches(0), "rank1_before_kill": rank1_launches,
+                                   "rank0_before_k": launches_pre_k[0],
+                                   "rank1_before_k": launches_pre_k[1]}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for t in readers:
+            t.join(timeout=30)
+    out["ranks_s"] = time.monotonic() - t_start
+
+    # -- the single-host reference ---------------------------------------------
+    t0 = time.monotonic()
+    ref_geometry = ref_geometry or dict(ENGINES[model][0])
+    eng = api.LocalEngine(EngineConfig(**dict(
+        ref_geometry, prefix_split=True, weights_dir=str(ckpt_root), seed=seed,
+        max_batch_tokens=ref_geometry["decode_batch_size"] * ref_geometry["max_model_len"])),
+        device=device)
+    try:
+        # submitted together: K attaches to G's session (one batch)
+        jids = {key: eng.submit_batch_inference(payload) for key, payload in (
+            ("g", {"model": gen_name, "inputs": rows_g, "system_prompt": system,
+                   "sampling_params": sampling}),
+            ("k", {"model": gen_name, "inputs": rows_k, "sampling_params": sampling}),
+            ("e", {"model": emb_name, "inputs": rows_e}),
+        )}
+        ref = {}
+        for key, jid in jids.items():
+            wait_for(lambda: eng.job_status(jid) in ("SUCCEEDED", "FAILED"), f"reference {key}")
+            if eng.job_status(jid) != "SUCCEEDED":
+                raise AssertionError(f"serve10: reference {key}: {eng.get_job(jid)}")
+            ref[key] = eng.job_results(jid)["outputs"]
+    finally:
+        eng.close(timeout=60)
+        eng._runner_cache.clear()
+    rvec = np.asarray(ref["e"], np.float32)
+    cos = (vecs * rvec).sum(1) / np.maximum(
+        np.linalg.norm(vecs, axis=1) * np.linalg.norm(rvec, axis=1), 1e-30)
+    out["single_host"] = {
+        "wall_s": time.monotonic() - t0,
+        "g_token_equal": sum(a == b for a, b in zip(outs_g, ref["g"])),
+        "k_token_equal": sum(a == b for a, b in zip(outs_k, ref["k"])),
+        "e_max_abs_diff": float(np.abs(vecs - rvec).max()), "e_min_cosine": float(cos.min()),
+    }
+    out["single_host"]["g_share"] = out["single_host"]["g_token_equal"] / n_gen
+    out["single_host"]["k_share"] = out["single_host"]["k_token_equal"] / n_kill
+    print("serve10: single host " + json.dumps(out["single_host"]), flush=True)
+    out["wall_s"] = time.monotonic() - t_start
+    by_rank = out["launches_by_rank"]
+    out["launches"] = {k.name: by_rank["rank0"][k.name] + by_rank["rank1_before_kill"][k.name]
+                       for k in (*kernels, *absent)}
+    for k in kernels:
+        for r in ("rank0", "rank1_before_kill"):
+            if by_rank[r][k.name] <= 0:
+                raise AssertionError(f"serve10: kernel {k.name} was not launched on {r}")
+    for k in absent:
+        if out["launches"][k.name]:
+            raise AssertionError(f"serve10: kernel {k.name} launched {out['launches'][k.name]} "
+                                 "times")
+    print("serve10: " + json.dumps(out), flush=True)
+    return out
+
+
+def dp_summary(out: dict) -> dict:
+    """Serve 10's headline figures, for a line near the end of the output."""
+    sh = out["single_host"]
+    return {
+        "card": out["card"], "wall_s": out["wall_s"], "ranks_ready_s": out["ranks_ready_s"],
+        "rows_per_s": {j: out[j]["rows_per_s"] for j in ("g", "e", "k")},
+        "g_rank_rows": out["g"]["rank_rows"], "g_verdict": out["g"]["verdict"],
+        "kill_to_succeeded_s": out["k"]["kill_to_succeeded_s"],
+        "rows_lost": sum(out[j]["rows_lost"] for j in ("g", "e", "k")),
+        "rows_duplicated": sum(out[j]["rows_duplicated"] for j in ("g", "e", "k")),
+        "requeued_rows": out["k"]["counters"]["requeued_rows"],
+        "token_equal_share": {"g": sh["g_share"], "k": sh["k_share"]},
+        "e_max_abs_diff": sh["e_max_abs_diff"], "e_min_cosine": sh["e_min_cosine"],
+        "launches": out["launches"],
+    }
+
+
 def free_card(torch, model: str) -> None:
     """The previous serve's runner must be gone before the next one."""
     import gc
@@ -4505,6 +5011,8 @@ def main() -> int:
     args = sys.argv[1:]
     if "--package" in args:   # time another tree's sutro_tpu_torch (--pair-timing)
         sys.path.insert(0, str(Path(args[args.index("--package") + 1]).resolve()))
+    if "--dp-rank" in args:   # one rank process of serve 10, started by serve 10
+        return dp_rank(args)
     import torch
 
     if not torch.cuda.is_available():
@@ -4589,6 +5097,11 @@ def run(torch, args, home: Path) -> int:
         print("serve9 summary: " + json.dumps(fleet_summary(s9)))
         print(f"card: {card}")
         return 0
+    if "--serve10-only" in args:   # the build, then serve 10 on its own checkpoint
+        s10 = serve_dp(torch, facade_path, facade_absent, card, fleet_checkpoint(torch, home))
+        print("serve10 summary: " + json.dumps(dp_summary(s10)))
+        print(f"card: {card}")
+        return 0
 
     records = []
     rng = np.random.default_rng(1234)
@@ -4633,6 +5146,9 @@ def run(torch, args, home: Path) -> int:
         free_card(torch, "qwen3-8b")
         # serve 9: the replica fleet, two replicas of the same checkpoint
         served["qwen3-8b fleet"] = serve_fleet(torch, facade_path, facade_absent, card, ckpt)
+        free_card(torch, "qwen3-8b")
+        # serve 10: two data-parallel rank processes of the same checkpoint
+        served["qwen3-8b dp"] = serve_dp(torch, facade_path, facade_absent, card, ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     free_card(torch, "qwen3-8b")
@@ -4683,6 +5199,7 @@ def run(torch, args, home: Path) -> int:
     print("serve7 summary: " + json.dumps(online_summary(served["qwen3-8b serving"])))
     print("serve8 summary: " + json.dumps(graphs_summary(served["gpt-oss-20b graphs"])))
     print("serve9 summary: " + json.dumps(fleet_summary(served["qwen3-8b fleet"])))
+    print("serve10 summary: " + json.dumps(dp_summary(served["qwen3-8b dp"])))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -54,13 +54,21 @@ With ``EngineConfig.profile_dir`` set, every generation job runs under
 and the CPU's ops) in ``{profile_dir}/{job_id}/trace.json``, entered on
 the worker thread that drives the job's batcher.
 
-Left out (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): data-parallel engines (``SUTRO_DP_WORLD`` above 1, the
-embedding job's data-parallel branch too, ``job_fleet``).
+Data parallelism (``engine/dphost.py``): with ``SUTRO_DP_WORLD`` above
+1 in its environment, each engine process is one rank of a job that
+spans them all. Every rank runs its share of the rows on its own
+device; rank 0 merges every rank's rows through its jobstore, and its
+elastic rounds requeue a dead, stalled or drained rank's rows.
+``job_fleet`` is the round's membership view (``jobs/<id>/fleet.json``
+after the round), and the workers' telemetry shards merge into rank 0's
+job document (``telemetry/distributed.py``).
 """
 
 from __future__ import annotations
 
+import functools
+import hashlib
+import json
 import logging
 import os
 import queue
@@ -75,6 +83,7 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 from .. import telemetry
+from ..telemetry import distributed
 from ..telemetry import monitor as tmonitor
 from ..common import MODEL_CATALOG, read_csv_text, read_parquet_columns
 from ..interfaces import JobStatus
@@ -82,6 +91,17 @@ from ..models.configs import MODEL_CONFIGS, ModelConfig
 from . import faults
 from .config import EngineConfig, load_engine_config
 from .datasets import DatasetStore
+from .dphost import (
+    DPWorld,
+    EmbResult,
+    _accepts_kwarg,
+    configure_channel,
+    fleet_view,
+    run_dp_coordinator,
+    run_dp_worker,
+    serve_resume_round,
+    shard_requests,
+)
 from .jobstore import JobStore, estimate_cost
 from .metrics import BatchedProgress, MetricsBus, Throughput
 from .profiling import StepTimer
@@ -136,20 +156,6 @@ def _read_url_rows(url: str, column: "str | None") -> list:
     return columns[column]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the CUDA engine yet (ROADMAP.md §1, "
-        f"{item!r})"
-    )
-
-
-def _check_dp_world() -> None:
-    """``SUTRO_DP_WORLD`` above 1 asks for data-parallel engines, which
-    are not ported: refuse it (at construction and at every job)."""
-    if int(os.environ.get("SUTRO_DP_WORLD", "1") or 1) > 1:
-        raise _not_ported("data-parallel engines (SUTRO_DP_WORLD)", "Multi-GPU")
-
-
 def _token_bytes_of(tok):
     """The tokenizer's byte view of a token id (stop-sequence detection),
     or None when it has none: base-class stubs raise, so probe once."""
@@ -196,11 +202,16 @@ class LocalEngine:
     def __init__(self, ecfg: Optional[EngineConfig] = None, *, device="cuda"):
         self.ecfg = ecfg or load_engine_config()
         self.device = device
-        _check_dp_world()
         # per-job fault-injection activation (EngineConfig.fault_plan or
         # SUTRO_FAULT_PLAN; None clears — a fresh engine with no plan
         # runs injection-free at zero overhead)
         faults.configure(self.ecfg.fault_plan)
+        # dp channel liveness knobs (validated >= 0 here; the
+        # SUTRO_DP_* environment variables still override when set)
+        configure_channel(
+            stall_timeout=self.ecfg.dp_stall_timeout,
+            heartbeat=self.ecfg.dp_heartbeat,
+        )
         self.jobs = JobStore(
             io_retries=self.ecfg.io_retries,
             io_backoff=self.ecfg.io_backoff_base,
@@ -682,12 +693,25 @@ class LocalEngine:
                     # read could race job completion and re-run a
                     # SUCCEEDED job
                     status = self.jobs.status(job_id)
-                    if status == JobStatus.SUCCEEDED:
+                    if (
+                        status == JobStatus.SUCCEEDED
+                        and DPWorld.from_env() is None
+                    ):
                         return {
                             "status": status.value,
                             "resumed": False,
                             "detail": "job already succeeded",
                         }
+                    # Under DP, EVERY rank re-queues on resume —
+                    # including rank 0 and even when locally
+                    # SUCCEEDED. A worker's SUCCEEDED only means "my
+                    # shard streamed" (the authoritative state is the
+                    # coordinator's), and a refusing coordinator would
+                    # leave re-queued workers retrying a port nobody
+                    # serves until timeout. The re-run is a cheap no-op
+                    # round: the coordinator's resume set already
+                    # contains every row, so all shards are empty and
+                    # the job re-finalizes identically.
                     # fetch BEFORE registering as queued: a raise here
                     # must not leave the id poisoning _queued
                     rec = self.jobs.get(job_id)
@@ -876,7 +900,69 @@ class LocalEngine:
         return doc
 
     def job_fleet(self, job_id: str) -> Dict[str, Any]:
-        raise _not_ported("job_fleet (data-parallel engines)", "Multi-GPU")
+        """Elastic dp fleet view: the coordinator's live membership
+        snapshot while this process serves the job's round (per-rank
+        state, row ownership, requeue/steal counters), else the
+        snapshot persisted at round end (``jobs/<id>/fleet.json``).
+        Jobs that never ran an elastic round report
+        ``{"elastic": False}``."""
+        self.jobs.get(job_id)  # KeyError -> 404 upstream if unknown
+        snap = fleet_view(job_id)
+        if snap is not None:
+            snap["live"] = True
+            return snap
+        path = self.jobs._dir(job_id) / "fleet.json"
+        if path.exists():
+            try:
+                snap = json.loads(path.read_text())
+                snap["live"] = False
+                return snap
+            except (OSError, ValueError) as e:
+                logger.warning(
+                    "unreadable fleet.json for %s: %s", job_id, e
+                )
+        return {"job_id": job_id, "elastic": False}
+
+    def _persist_fleet(self, job_id: str) -> None:
+        """Coordinator round end: persist the final membership snapshot
+        (``jobs/<id>/fleet.json``) and stamp a doctor-readable summary
+        into the job's telemetry attrs. Best-effort — fleet bookkeeping
+        must never change a round's outcome."""
+        snap = fleet_view(job_id)
+        if snap is None:
+            return
+        try:
+            path = self.jobs._dir(job_id) / "fleet.json"
+            tmp = path.with_suffix(".json.tmp")
+            tmp.write_text(json.dumps(snap, indent=2))
+            tmp.replace(path)
+        except OSError:
+            logger.warning(
+                "fleet snapshot persist failed for %s", job_id,
+                exc_info=True,
+            )
+        if telemetry.enabled():
+            ranks = snap.get("ranks", {})
+            c = snap.get("counters", {})
+            telemetry.job(job_id).attrs["dp_fleet"] = {
+                "live_ranks": snap.get("live_ranks", 0),
+                "requeued_rows": c.get("requeued_rows", 0),
+                "stolen_rows": c.get("stolen_rows", 0),
+                "duplicate_results_dropped": c.get(
+                    "duplicate_results_dropped", 0
+                ),
+                "lost_ranks": sorted(
+                    r for r, v in ranks.items()
+                    if v.get("state") == "lost"
+                ),
+                "drained_ranks": sorted(
+                    r for r, v in ranks.items()
+                    if v.get("state") == "drained"
+                ),
+                "late_joiners": sorted(
+                    r for r, v in ranks.items() if v.get("late_join")
+                ),
+            }
 
     # ------------------------------------------------------------------
     # Worker
@@ -1109,7 +1195,6 @@ class LocalEngine:
             from .stagegraph import StageGraphRunner
 
             return StageGraphRunner(self, job_id, rec).run()
-        _check_dp_world()
 
         if rec.dry_run:
             # dry runs tokenize only: no runner is built
@@ -1176,10 +1261,81 @@ class LocalEngine:
             batcher.ladder = self.control.ladder
         from .profiling import job_trace
 
+        dp = DPWorld.from_env()
         # on this thread: the one that runs the batcher (torch.profiler
         # records CPU ops only on the thread that started it)
         with job_trace(self.ecfg.profile_dir, job_id, self.device):
+            if dp is not None:
+                return self._run_dp_generation(job_id, rec, sess, batcher, dp)
             return self._run_cobatch_session(job_id, engine_key, sess, batcher)
+
+    def _run_dp_generation(self, job_id, rec, sess, batcher, dp) -> Optional[int]:
+        """One rank's part of a data-parallel generation job: this
+        process runs its share of the rows on its own device; rank 0
+        merges every rank's stream through the jobstore (order-preserving
+        by row_id). Priority preemption and cross-job co-batching are
+        per-rank concerns and disabled for DP jobs — yielding or
+        multiplexing one rank of a job that spans them all would stall,
+        not help, the job. Returns the session contract's value (None,
+        or the priority after a yield)."""
+        # deterministic cross-rank job identity (job_ids are
+        # per-process): guards the channel against rank-queue divergence
+        # merging one job's rows into another. ALL inputs feed the hash
+        # (length-delimited) — two jobs differing only in middle rows
+        # must not share a key. SUTRO_DP_SECRET (optional, same value on
+        # every rank) seeds the hash so the key is not derivable from
+        # job content alone (dphost.py trust model).
+        h = hashlib.sha256(os.environ.get("SUTRO_DP_SECRET", "").encode())
+        h.update(
+            json.dumps(
+                [
+                    rec.model,
+                    rec.num_rows,
+                    sess.sampling,
+                    rec.system_prompt,
+                    rec.output_schema,
+                ],
+                sort_keys=True,
+                default=str,
+            ).encode()
+        )
+        for row in sess.inputs:
+            rb = str(row).encode()
+            h.update(f"{len(rb)}:".encode())
+            h.update(rb)
+        job_key = h.hexdigest()[:16]
+        # row retries ride the shard-owning rank's batcher; row events
+        # reach the coordinator's failure_log via the channel's fault
+        # messages (dphost). job_id tags the run's spans so the
+        # shipped/merged timeline is attributable to this job
+        run_shard = functools.partial(
+            batcher.run, row_retries=self.ecfg.row_retries, job_id=job_id,
+        )
+        # the whole request pool goes down — elastic rounds re-shard it
+        # dynamically (rank 0 strides its own share; workers receive row
+        # assignments in the handshake)
+        outcome = self._dp_dispatch(
+            dp, run_shard, sess.requests,
+            job_id=job_id, job_key=job_key,
+            on_result=sess.on_result,
+            on_progress=sess.on_progress,
+            should_cancel=sess.should_cancel,
+            on_row_event=sess.on_row_event,
+            # the coordinator's partial store holds every rank's flushed
+            # rows — the done set lets relaunched workers resume
+            # row-granularly
+            done_rows=set(sess.done), num_rows=rec.num_rows,
+        )
+        if outcome is None:  # worker rank: terminal status set
+            return None
+        sess.flush()
+        if sess.cancelled["flag"]:
+            self.jobs.set_status(job_id, JobStatus.CANCELLED)
+            return None
+        if outcome == "yielded":
+            return rec.job_priority
+        sess.finalize_completed(batcher)
+        return None
 
     def _run_serving_session(self, engine_key: str) -> None:
         """Serving-only co-batch session: no primary batch job, just
@@ -1466,6 +1622,187 @@ class LocalEngine:
         return None
 
 
+    def _dp_dispatch(
+        self, dp, run_shard, pool, *, job_id, job_key, on_result,
+        on_progress, should_cancel, done_rows, num_rows,
+        on_row_event=None,
+    ) -> Optional[str]:
+        """Execute one rank's share of a DP job. ``pool`` is the FULL
+        request pool (not a pre-strided shard): elastic rounds re-shard
+        it dynamically, so every rank needs the whole row universe —
+        rank 0 strides its own share, workers run the row assignment
+        received in the handshake (falling back to their stride against
+        a pre-elastic coordinator). Returns the outcome on rank 0
+        (coordinator: merges every rank through ``on_result``), or None
+        on worker ranks after setting their terminal status — single
+        policy copy for the generation AND embedding paths
+        (never-served sentinel, CANCELLED-not-FAILED worker mapping,
+        preemption-drain mapping, full-resume round skip).
+
+        Distributed telemetry rides the channel here: rank 0 stamps a
+        trace context into the round and ingests every worker's
+        piggybacked shard (telemetry/distributed.py); worker ranks open
+        the round under the received context and ship their bounded
+        span/metrics shard on the terminal frame."""
+        tel_on = telemetry.enabled()
+        if dp.rank == 0:
+            tele_ctx = None
+            on_worker_tele = None
+            if tel_on:
+                round_no = distributed.REMOTE.next_round(job_id)
+                tele_ctx = distributed.trace_context(job_id, round_no)
+
+                def on_worker_tele(rank: int, shard: Dict) -> None:
+                    distributed.REMOTE.ingest(job_id, rank, shard)
+
+            if len(done_rows) >= num_rows:
+                # resume of a fully-merged job: serve a TRIVIAL round
+                # (bind, send resume-all, drain dones briefly) so
+                # pod-wide re-queued workers finish as SUCCEEDED no-ops
+                # instead of spinning their full accept timeout against
+                # an unbound port; workers that were not re-queued are
+                # not expected and not errors
+                if not serve_resume_round(
+                    dp, job_key=job_key, done_rows=done_rows,
+                    tele_ctx=tele_ctx, on_worker_tele=on_worker_tele,
+                ):
+                    # port held by a dying predecessor through every
+                    # bind retry: the job's rows are all merged, so
+                    # still complete — record why re-queued workers
+                    # may spin until their accept deadline
+                    self.jobs.append_failure_log(
+                        job_id,
+                        {"event": "dp_resume_round_unserved",
+                         "message": (
+                             "coordinator port busy through bind "
+                             "retries; re-queued workers retry until "
+                             "their accept deadline — resume again "
+                             "once the port frees"
+                         )},
+                    )
+                return "completed"
+            shard = shard_requests(pool, 0, dp.world)
+            try:
+                if tel_on:
+                    with telemetry.RECORDER.span(
+                        "dp_round", job_id, world=dp.world,
+                        shard_rows=len(shard),
+                    ):
+                        t0 = time.monotonic()
+                        try:
+                            return run_dp_coordinator(
+                                dp, run_shard, shard,
+                                on_result=on_result,
+                                on_progress=on_progress,
+                                should_cancel=should_cancel,
+                                job_key=job_key,
+                                done_rows=done_rows,
+                                on_row_event=on_row_event,
+                                tele_ctx=tele_ctx,
+                                on_worker_tele=on_worker_tele,
+                                requests=pool,
+                                job_id=job_id,
+                            )
+                        finally:
+                            telemetry.stage_observe(
+                                "dp_round", time.monotonic() - t0
+                            )
+                return run_dp_coordinator(
+                    dp, run_shard, shard,
+                    on_result=on_result,
+                    on_progress=on_progress,
+                    should_cancel=should_cancel,
+                    job_key=job_key,
+                    done_rows=done_rows,
+                    on_row_event=on_row_event,
+                    requests=pool,
+                    job_id=job_id,
+                )
+            finally:
+                # round over (any outcome): persist the final fleet
+                # snapshot next to the job record and stamp the doctor
+                # summary before the live registry entry ages out
+                self._persist_fleet(job_id)
+        if tel_on:
+            # the worker's results leave through the channel, not
+            # through the session's on_result — tally shard rows into
+            # the LOCAL per-job counters so the shipped shard reports
+            # what this rank executed. Registry rows_total is NOT
+            # incremented here on purpose: rows count at the
+            # coordinator's merge, so federated series sum to pod
+            # totals instead of double-counting worker rows.
+            jtel = telemetry.job(job_id)
+            inner_shard = run_shard
+
+            def run_shard(rows, *, on_result, **kw):
+                def tally(res):
+                    err = getattr(res, "error", None)
+                    fin = str(getattr(res, "finish_reason", ""))
+                    outcome = (
+                        "quarantined"
+                        if err is not None or fin.startswith("error")
+                        else "cancelled" if fin == "cancelled"
+                        else "ok"
+                    )
+                    jtel.add(f"rows_{outcome}")
+                    on_result(res)
+
+                # this wrapper's **kw makes dphost's signature probe
+                # over-permissive; re-probe the REAL shard runner
+                if "on_row_event" in kw and not _accepts_kwarg(
+                    inner_shard, "on_row_event"
+                ):
+                    kw.pop("on_row_event")
+                return inner_shard(rows, on_result=tally, **kw)
+
+        try:
+            w_outcome = run_dp_worker(
+                dp, run_shard, pool,
+                job_key=job_key,
+                should_cancel=should_cancel,
+                tele=(
+                    distributed.WorkerTelemetry(job_id, dp.rank)
+                    if tel_on
+                    else None
+                ),
+                elastic=True,
+            )
+        except RuntimeError as e:
+            if "never served" not in str(e):
+                raise
+            # most likely a resume of an already-complete pod job where
+            # rank 0 (correctly) skipped its round. CANCELLED, not
+            # FAILED: nothing ran, the record is non-authoritative, and
+            # CANCELLED stays resumable.
+            self.jobs.set_status(
+                job_id,
+                JobStatus.CANCELLED,
+                failure_reason={"message": str(e)},
+            )
+            return None
+        # worker stores are not authoritative: results live on rank 0;
+        # mark the local record terminal honestly (a cancelled shard,
+        # e.g. coordinator death, is not a success)
+        if w_outcome == "drained":
+            self.jobs.set_status(
+                job_id,
+                JobStatus.CANCELLED,
+                failure_reason={
+                    "message": (
+                        "worker preempted: drained in-flight rows "
+                        "to the coordinator"
+                    )
+                },
+            )
+            return None
+        self.jobs.set_status(
+            job_id,
+            JobStatus.SUCCEEDED
+            if w_outcome == "completed"
+            else JobStatus.CANCELLED,
+        )
+        return None
+
     def _run_embedding_job(
         self, job_id, rec, runner, token_rows, jm
     ) -> Optional[int]:
@@ -1477,8 +1814,10 @@ class LocalEngine:
         resumed job embeds only the rows not flushed. The same mechanism
         serves cancel and preemption: between batches the job stops on
         its cancel flag, or yields (returning its priority) when a
-        strictly higher-priority job is queued. The record's ``perf``
-        holds the ``embed`` device calls and the jobstore's host time."""
+        strictly higher-priority job is queued. Under dp the rows go
+        through ``_dp_dispatch`` (rank 0 merges, workers stream theirs
+        and return None). The record's ``perf`` holds this rank's
+        ``embed`` device calls and the jobstore's host time."""
         bs = max(self.ecfg.decode_batch_size, 8)
         results: Dict[int, Any] = {
             i: r["outputs"] for i, r in self.jobs.read_partial(job_id).items()
@@ -1498,59 +1837,131 @@ class LocalEngine:
         # so the output order is unaffected)
         todo.sort(key=lambda i: len(token_rows[i]))
         jm.progress(len(results))
+        dp = DPWorld.from_env()
+        # one device per engine; under dp the merged progress stream
+        # carries every rank's throughput, so per-chip rates divide by
+        # the ranks
+        n_chips = dp.world if dp is not None else 1
         row_progress = BatchedProgress(jm, every_rows=bs)
         tel_on = telemetry.enabled()
         jtel = telemetry.job(job_id) if tel_on else None
+
+        def record_result(r: EmbResult) -> None:
+            if tel_on:
+                jtel.add("rows_ok")
+                telemetry.ROWS_TOTAL.inc(1.0, "ok")
+            results[r.row_id] = r.vector
+            pending_flush.append(
+                {"row_id": r.row_id, "outputs": r.vector,
+                 "cumulative_logprobs": 0.0, "finish_reason": "stop"}
+            )
+            if len(pending_flush) >= _PARTIAL_FLUSH_EVERY:
+                flush()
+            row_progress.update(len(results))
+
+        # rows/s over the MERGED stream — under dp the coordinator's
+        # rate over every rank
         rows_rate = Throughput(1)
 
-        outcome = "completed"
-        done_n = in_toks = 0
-        t0 = time.monotonic()
-        for off in range(0, len(todo), bs):
-            if job_id in self._cancel:
-                outcome = "cancelled"
-                break
-            if self._higher_priority_waiting(rec.job_priority):
-                outcome = "yielded"
-                break
-            grp = todo[off : off + bs]
-            t0e = time.monotonic()
-            with timer.time("embed"):
-                emb = runner.embed_batch([token_rows[i].tolist() for i in grp])
+        def embed_progress(p: Dict[str, Any]) -> None:
+            tps = p.get("total_tokens_processed_per_second", 0.0)
             if tel_on:
-                dte = time.monotonic() - t0e
-                telemetry.stage_observe("embed", dte)
-                telemetry.RECORDER.record(
-                    "embed", job_id, t0e, dte, {"rows": len(grp)}
+                rows_rate.note_total(p.get("rows_completed", 0))
+                telemetry.ROWS_PER_SECOND.set(
+                    rows_rate.per_second(),
+                    "dp" if dp is not None else "embed",
                 )
-            for i, vec in zip(grp, emb.tolist()):
-                if tel_on:
-                    jtel.add("rows_ok")
-                    telemetry.ROWS_TOTAL.inc(1.0, "ok")
-                results[i] = vec
-                pending_flush.append(
-                    {"row_id": i, "outputs": vec,
-                     "cumulative_logprobs": 0.0, "finish_reason": "stop"}
-                )
-                if len(pending_flush) >= _PARTIAL_FLUSH_EVERY:
-                    flush()
-                row_progress.update(len(results))
-                done_n += 1
-                in_toks += len(token_rows[i])
-            # one device per engine, so per-chip rates are the job's
-            tps = in_toks / max(time.monotonic() - t0, 1e-9)
-            if tel_on:
-                rows_rate.note_total(done_n)
-                telemetry.ROWS_PER_SECOND.set(rows_rate.per_second(), "embed")
                 telemetry.TOKENS_PER_SECOND.set(tps)
-                telemetry.TOKENS_PER_SECOND_PER_CHIP.set(tps)
+                telemetry.TOKENS_PER_SECOND_PER_CHIP.set(tps / n_chips)
             jm.tokens(
                 {
-                    "input_tokens": in_toks,
+                    "input_tokens": p.get("input_tokens", 0),
                     "output_tokens": 0,
                     "total_tokens_processed_per_second": tps,
-                    "tokens_per_second_per_chip": tps,
+                    "tokens_per_second_per_chip": tps / n_chips,
                 }
+            )
+
+        def embed_rows(
+            pairs, *, on_result, on_progress=None, should_cancel=None,
+            should_yield=None,
+        ) -> str:
+            """Embed ``pairs`` [(row_id, ids), ...] batch-wise. The one
+            execution path for single-host, DP-coordinator-local, and
+            DP-worker shards (dphost run_shard signature)."""
+            done_n = in_toks = 0
+            t0 = time.monotonic()
+            for off in range(0, len(pairs), bs):
+                if should_cancel and should_cancel():
+                    return "cancelled"
+                if should_yield and should_yield():
+                    return "yielded"
+                grp = pairs[off : off + bs]
+                t0e = time.monotonic()
+                with timer.time("embed"):
+                    emb = runner.embed_batch(
+                        [list(map(int, ids)) for _, ids in grp]
+                    )
+                if tel_on:
+                    dte = time.monotonic() - t0e
+                    telemetry.stage_observe("embed", dte)
+                    telemetry.RECORDER.record(
+                        "embed", job_id, t0e, dte, {"rows": len(grp)}
+                    )
+                for (i, ids), vec in zip(grp, emb.tolist()):
+                    on_result(EmbResult(row_id=i, vector=vec))
+                    done_n += 1
+                    in_toks += len(ids)
+                if on_progress:
+                    dt = max(time.monotonic() - t0, 1e-9)
+                    on_progress(
+                        {
+                            "rows_completed": done_n,
+                            "input_tokens": in_toks,
+                            "output_tokens": 0,
+                            "total_tokens_processed_per_second":
+                                in_toks / dt,
+                        }
+                    )
+            return "completed"
+
+        if dp is not None:
+            # cross-rank identity from the tokenized rows (identical on
+            # every rank: same inputs, same tokenizer); SUTRO_DP_SECRET
+            # seeds it like the generation path (dphost.py trust model)
+            h = hashlib.sha256(
+                os.environ.get("SUTRO_DP_SECRET", "").encode()
+            )
+            h.update(f"embed:{rec.model}:{rec.num_rows}".encode())
+            for r in token_rows:
+                rb = np.asarray(r, np.int32).tobytes()
+                h.update(f"{len(rb)}:".encode())
+                h.update(rb)
+            # full pool, not a pre-strided shard: elastic rounds
+            # re-shard it dynamically (see _dp_dispatch)
+            pool = [(i, token_rows[i]) for i in todo]
+            outcome = self._dp_dispatch(
+                dp, embed_rows, pool,
+                job_id=job_id, job_key=h.hexdigest()[:16],
+                on_result=record_result,
+                on_progress=embed_progress,
+                should_cancel=lambda: job_id in self._cancel,
+                done_rows=set(results), num_rows=rec.num_rows,
+                on_row_event=lambda ev: self.jobs.append_failure_log(
+                    job_id, ev
+                ),
+            )
+            if outcome is None:  # worker rank: terminal status set
+                return None
+        else:
+            outcome = embed_rows(
+                [(i, token_rows[i]) for i in todo],
+                on_result=record_result,
+                on_progress=embed_progress,
+                should_cancel=lambda: job_id in self._cancel,
+                should_yield=lambda: self._higher_priority_waiting(
+                    rec.job_priority
+                ),
             )
         flush()
         if outcome == "cancelled":
@@ -1714,9 +2125,12 @@ class _GenSession:
                 self.jtel.add("rows_quarantined")
                 telemetry.ROWS_TOTAL.inc(1.0, "quarantined")
 
-        # one device per engine (meshes are not ported), so per-device
-        # rates are the job's rates
-        self.n_chips = 1
+        # one device per engine (meshes are not ported); under
+        # engine-level DP the merged progress stream carries every
+        # rank's throughput, so per-chip numbers divide by the ranks
+        dp = DPWorld.from_env()
+        self.n_chips = 1 * (dp.world if dp else 1)
+        self._dp = dp is not None
         self.tput = Throughput(self.n_chips)
         self.rows_rate = Throughput(1)
         self.cancelled = {"flag": False}
@@ -1903,7 +2317,8 @@ class _GenSession:
             )
             self.rows_rate.note_total(len(self.done))
             telemetry.ROWS_PER_SECOND.set(
-                self.rows_rate.per_second(), "generate"
+                self.rows_rate.per_second(),
+                "dp" if self._dp else "generate",
             )
         self.jm.tokens(
             {

@@ -28,8 +28,8 @@ job; ``get_monitor`` reads the live SLO monitor, locally or over HTTP.
 ``get_fleet``, ``get_fleet_monitor`` and ``get_replay_log`` read a fleet
 router (``fleet/router.py``; ``backend="fleet"``).
 
-Not ported yet: ``get_job_fleet`` (locally it raises, and a server
-answers 501; data-parallel engines, ROADMAP.md §1).
+``get_job_fleet`` reads a data-parallel job's fleet view
+(``engine/dphost.py``), locally or as ``GET /job-fleet/{id}``.
 """
 
 from __future__ import annotations
@@ -957,9 +957,13 @@ class Sutro(EmbeddingTemplates, ClassificationTemplates, EvalTemplates):
         return self.engine.get_trace(ident)
 
     def get_job_fleet(self, job_id: str) -> Dict[str, Any]:
-        """Data-parallel fleet view of a job (``GET /job-fleet/{id}``
-        remotely; the CUDA engine's raises: data-parallel engines are
-        not ported)."""
+        """Elastic dp fleet view for a job: per-rank membership state
+        (running, idle, lost, drained, late-joined), row ownership, and
+        the round's requeue/steal/duplicate counters. Live while the
+        coordinator is serving the round, else the snapshot persisted
+        at round end; ``{"elastic": False}`` for jobs that never ran
+        one. Both backends (the remote server serves it as
+        ``GET /job-fleet/{id}``)."""
         if self.backend == "remote":
             return self._remote_json("get", f"job-fleet/{job_id}")["fleet"]
         return self.engine.job_fleet(job_id)

@@ -28,7 +28,8 @@ Endpoints: POST /batch-inference, GET /stream-job-progress/{id}
 GET /try-authentication, GET /get-quotas, POST /functions/run; the
 interactive tier's POST /v1/chat/completions and /v1/completions (SSE
 or collected); GET /metrics (Prometheus text), /job-telemetry/{id},
-/job-doctor/{id}, /trace/{id}; GET /monitor (the live SLO monitor's
+/job-doctor/{id}, /trace/{id}; GET /job-fleet/{id} (a data-parallel
+job's fleet view, ``{"fleet": ...}``); GET /monitor (the live SLO monitor's
 document, with the control plane's ``enforcement`` section when it is
 on) and GET /monitor/stream (NDJSON, one record per sampler tick;
 ``?ticks=N`` bounds it), both 404 when the monitor is disabled; the
@@ -40,9 +41,6 @@ invalid graph is a 400 with ``code: INVALID_GRAPH`` and a ``reason``. A
 batch submit the control plane refuses answers 429 with ``code:
 QUOTA_EXCEEDED`` and the FAILED job's id in ``results`` (the JAX server
 answers 200 with the id; both leave the same FAILED record).
-
-Not ported yet (ROADMAP.md §1, "Multi-GPU"): GET /job-fleet/{id}
-answers 501 with the engine's not-ported error.
 """
 
 from __future__ import annotations

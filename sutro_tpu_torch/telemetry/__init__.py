@@ -50,6 +50,7 @@ __all__ = [
     "JOBS",
     "TRACES",
     "traces",
+    "distributed",
     "enabled",
     "set_enabled",
     "stage_observe",
@@ -420,8 +421,9 @@ SCHEMA_VERSION = 2
 
 def job_doc(job_id: str) -> Dict[str, Any]:
     """Assemble the per-job telemetry document from live state: the
-    job's span timeline (flight recorder) + its exact counters. The
-    port has no dp coordinator yet, so there are no worker sections."""
+    job's span timeline (flight recorder) + its exact counters, plus —
+    on a dp coordinator — every ingested worker section (the merged
+    cross-process timeline the doctor analyzes)."""
     jc = JOBS.peek(job_id)
     spans = RECORDER.snapshot(job_id)
     doc: Dict[str, Any] = {
@@ -441,6 +443,17 @@ def job_doc(job_id: str) -> Dict[str, Any]:
     }
     if jc is not None and jc.attrs:
         doc["attrs"] = dict(jc.attrs)
+    workers = distributed.REMOTE.sections(job_id)
+    if workers:
+        doc["workers"] = workers
+        doc["stages"] = sorted(
+            set(doc["stages"])
+            | {
+                s["name"]
+                for w in workers
+                for s in w.get("spans", ())
+            }
+        )
     return doc
 
 
@@ -485,3 +498,9 @@ def reset_for_tests() -> None:
     TRACES.clear()
     for jc in JOBS:
         JOBS.drop(jc.job_id)
+    distributed.REMOTE.clear()
+
+
+# imported last: distributed.py resolves the package singletons above
+# lazily at call time, so the bottom import only publishes the name
+from . import distributed  # noqa: E402

@@ -2,12 +2,15 @@
 
 - every module of ``sutro_tpu_torch``, and ``chip_smoke``, imports in a
   fresh interpreter where importing ``jax`` or ``sutro_tpu`` fails;
+  ``sutro_tpu_torch.cli`` (the one module that imports ``click`` and
+  ``tabulate``) is among them;
 - an AST scan finds no import of either in any file of the port;
 - ``chip_smoke.main()`` exits non-zero and prints no result without a
   CUDA device;
 - the same holds with the packages the card's machine lacks (pandas,
   pyarrow, pydantic, tqdm, colorama, requests, polars, safetensors,
-  click) blocked too, and there a one-row job runs through ``so.infer``
+  click, tabulate) blocked too, every module but the CLI imports, and
+  there a one-row job runs through ``so.infer``
   and the engine's ``job_results``, an embedding job gives its vectors,
   and a job reads its rows from a CSV dataset;
 - with the same packages blocked, the server (``server.py``) answers a
@@ -21,7 +24,10 @@
   router take a routed job (its progress relayed as NDJSON), a routed
   chat streams, the SDK's fleet getters answer, a captured record
   replays, and a job traced under ``profile_dir`` writes its trace;
-- no file of the port imports ``requests``.
+- no file of the port imports ``requests``, and no file but ``cli.py``
+  imports ``click`` or ``tabulate``;
+- an engine with ``SUTRO_DP_WORLD=2`` in its environment builds (a
+  data-parallel rank), where the port once refused it.
 """
 
 import ast
@@ -40,7 +46,10 @@ FORBIDDEN = ("jax", "jaxlib", "sutro_tpu")
 # not installed on the card's machine: the port reaches them only inside
 # the functions that need them
 ABSENT_ON_CARD = ("pandas", "pyarrow", "pydantic", "tqdm", "colorama", "requests",
-                  "polars", "safetensors", "click")
+                  "polars", "safetensors", "click", "tabulate")
+# the one module that imports click and tabulate (at module level, as the
+# JAX package's CLI does)
+CLI = "sutro_tpu_torch.cli"
 # the kernel modules and the modules around them, imported by name
 MODULES = (
     "sutro_tpu_torch.ops.cuda_build",
@@ -96,6 +105,8 @@ MODULES = (
     "sutro_tpu_torch.fleet.obs",
     "sutro_tpu_torch.fleet.replay",
     "sutro_tpu_torch.fleet.router",
+    "sutro_tpu_torch.engine.dphost",
+    "sutro_tpu_torch.telemetry.distributed",
 )
 
 
@@ -104,6 +115,9 @@ def _port_files():
 
 
 def _import_all_code(blocked) -> str:
+    """Import every module of the port (the CLI only where ``click`` is
+    not blocked) and ``chip_smoke``; print the names imported."""
+    skip = (CLI,) if "click" in blocked else ()
     return (
         "import sys, pkgutil, importlib\n"
         f"for m in {tuple(blocked)!r}:\n"
@@ -112,10 +126,11 @@ def _import_all_code(blocked) -> str:
         "names = [m.name for m in pkgutil.walk_packages("
         "sutro_tpu_torch.__path__, 'sutro_tpu_torch.')]\n"
         f"names += [n for n in {MODULES!r} if n not in names]\n"
+        f"names = [n for n in names if n not in {skip!r}]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "print(len(names))\n"
+        "print(len(names), " + repr(CLI) + " in names)\n"
     )
 
 
@@ -126,7 +141,8 @@ def test_port_imports_with_jax_and_reference_blocked():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 24
+    n, cli = out.stdout.split()
+    assert int(n) >= 24 and cli == "True"
 
 
 def test_port_imports_and_runs_a_job_without_the_card_machines_missing_packages(tmp_path):
@@ -341,6 +357,35 @@ def test_no_file_of_the_port_imports_requests(path):
     router and replay speak ``urllib`` and ``http.client``."""
     for top, n in _imported_tops(path):
         assert top != "requests", f"{path}: imports {n}"
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_only_the_cli_imports_click_and_tabulate(path):
+    """The card's machine has neither: the CLI is the one module that
+    imports them, and nothing else of the port imports the CLI."""
+    tops = {top for top, _ in _imported_tops(path)}
+    if path == PORT / "cli.py":
+        assert {"click", "tabulate"} <= tops
+        return
+    assert not tops & {"click", "tabulate"}, f"{path}: imports {tops & {'click', 'tabulate'}}"
+    text = path.read_text()
+    assert "from . import cli" not in text and "from .cli import" not in text, path
+
+
+def test_an_engine_with_a_dp_world_builds(tmp_path, monkeypatch):
+    """``SUTRO_DP_WORLD=2`` makes the engine a data-parallel rank; the
+    port refused it at construction before ``engine/dphost.py`` came
+    over. Building one binds nothing: the channel opens at a job."""
+    from sutro_tpu_torch.engine.api import LocalEngine
+    from sutro_tpu_torch.engine.config import EngineConfig
+
+    monkeypatch.setenv("SUTRO_HOME", str(tmp_path))
+    monkeypatch.setenv("SUTRO_MONITOR", "0")
+    monkeypatch.setenv("SUTRO_DP_WORLD", "2")
+    monkeypatch.setenv("SUTRO_DP_RANK", "1")
+    monkeypatch.setenv("SUTRO_DP_COORD", "127.0.0.1:1")
+    eng = LocalEngine(EngineConfig(), device="cpu")
+    assert eng.close(timeout=30)
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -8,9 +8,10 @@ DataFrame. Also: ``classify``'s schema dict and system prompt equal the
 JAX template's (pydantic's ``model_json_schema()``) for list and dict
 classes; ``infer`` on a DataFrame with ``column`` (one name, or names
 and separators) and ``with_original_df``; the results cache round
-trip; the job-lifecycle methods; the helpers of ``common``; and the
-refusal of what is not ported (stage graphs, the control plane,
-data-parallel engines, the fleet view and the live monitor).
+trip; the job-lifecycle methods; the helpers of ``common``; and what
+was once refused (stage graphs, the control plane, data-parallel
+engines, the fleet view and the live monitor) answering as the JAX
+package's does.
 """
 
 import json
@@ -192,9 +193,11 @@ def test_common_helpers_match():
 
 
 def test_what_is_not_ported_is_refused(clients, monkeypatch):
-    """Data-parallel engines and the fleet view raise; the remote
-    backend, the serving tier, stage graphs, the control plane and the
-    live monitor (ported since) answer as the JAX package's do."""
+    """The remote backend, the serving tier, stage graphs, the control
+    plane, the live monitor, data-parallel engines and the fleet view
+    (all ported since) answer as the JAX package's do: an engine builds
+    with ``SUTRO_DP_WORLD=2`` set, and a job that ran no dp round has
+    the JAX package's fleet view."""
     from sutro_tpu.engine.stagegraph import InvalidGraph as JaxInvalidGraph
     from sutro_tpu_torch.engine.stagegraph import InvalidGraph
 
@@ -222,12 +225,15 @@ def test_what_is_not_ported_is_refused(clients, monkeypatch):
     finally:
         assert eng.close(timeout=30)
     monkeypatch.setenv("SUTRO_DP_WORLD", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.LocalEngine(EngineConfig(), device="cpu")
+    assert api.LocalEngine(EngineConfig(), device="cpu").close(timeout=30)
     monkeypatch.delenv("SUTRO_DP_WORLD")
-    for call in (lambda: c.engine.job_fleet("job-x"), lambda: c.get_job_fleet("job-x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    for client in (c, jc):
+        with pytest.raises(KeyError):
+            client.get_job_fleet("job-x")
+    jjid = jc.engine.submit_batch_inference({"model": "tiny-dense", "inputs": TEXTS,
+                                             "dry_run": True})
+    assert c.get_job_fleet(jid) == {"job_id": jid, "elastic": False}
+    assert jc.get_job_fleet(jjid) == {"job_id": jjid, "elastic": False}
     # the monitor is off in this module (SUTRO_MONITOR=0): both engines
     # refuse the same way
     for client in (c, jc):

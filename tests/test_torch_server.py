@@ -11,9 +11,9 @@ record, the job list and status, the cancel of a queued job, datasets
 ``/fleet-state``, ``/fleet-warm``, ``/v1/chat/completions`` and
 ``/v1/completions`` collected, the typed ``InvalidPriority`` 400, a
 404 on an unknown route, ``/monitor`` with the monitor off and a bad
-``stages`` payload. The port refuses ``/job-fleet`` (not ported) with a
-501, and ``_graceful_shutdown`` refuses new requests with a 503 while a
-stream finishes.
+``stages`` payload and ``/job-fleet/{id}`` (a 404 for an unknown job,
+the fleet view of one that ran no dp round). ``_graceful_shutdown``
+refuses new requests with a 503 while a stream finishes.
 """
 
 import json
@@ -235,16 +235,26 @@ def test_openai_routes_and_fleet_frames(served):
 
 
 def test_what_the_port_has_not_ported(served):
-    """Only ``/job-fleet`` is refused (501). With the monitor off (as in
-    this module) both servers answer ``/monitor`` 404; a ``stages``
-    payload is a stage-graph job, and a bad one the same 400."""
+    """Nothing is refused any more. With the monitor off (as in this
+    module) both servers answer ``/monitor`` 404; ``/job-fleet/{id}``
+    answers 404 for an unknown job and the same fleet view for a job
+    that ran no dp round; a ``stages`` payload is a stage-graph job, and
+    a bad one the same 400."""
     eng, url = served["port"]
     jurl = served["jax"][1]
     for path in ("monitor", "monitor/stream"):
         (status, body), (jstatus, jbody) = (_req(f"{u}/{path}") for u in (url, jurl))
         assert status == jstatus == 404 and "disabled" in body["detail"]
-    status, body = _req(f"{url}/job-fleet/job-0000000000000000")
-    assert status == 501 and "ROADMAP" in body["detail"]
+    (status, _), (jstatus, _) = (_req(f"{u}/job-fleet/job-0000000000000000")
+                                 for u in (url, jurl))
+    assert status == jstatus == 404
+    views = []
+    for u in (url, jurl):
+        _, sub = _req(f"{u}/batch-inference", "POST",
+                      {"model": "tiny-dense", "inputs": ROWS, "dry_run": True})
+        views.append((sub["results"], _req(f"{u}/job-fleet/{sub['results']}")))
+    for jid, (status, body) in views:
+        assert (status, body) == (200, {"fleet": {"job_id": jid, "elastic": False}})
     bad = {"model": "tiny-dense", "inputs": ROWS, "stages": [{"name": "a", "after": ["b"]}]}
     assert _req(f"{url}/batch-inference", "POST", bad) == _req(f"{jurl}/batch-inference",
                                                                 "POST", bad)
