@@ -47,7 +47,12 @@ Phases, in order; any failure raises and exits non-zero:
    and the paged decode with the sink and the 128-token window and
    without, the carry over 16 shared pages and the decode from it, and
    the grouped GEMM at M = 256 and 16,000, each beside its bound and
-   library call;
+   library call; then every kernel of serve 11 and its phases at the
+   shapes one rank launches (``check_shard_shapes``, held only):
+   Qwen3-30B-A3B's heads at tp=2 (16 over 2) in the prefix carry, the
+   paged decode with and without it and flash prefill, the page write
+   at KVH/tp*Dh = 256, and the grouped GEMM at E=128 with F=384 (tp=2)
+   and at E=64 with F=768 (ep=2);
 4. serve 1: ``ContinuousBatcher.run`` over a ``ModelRunner`` for
    ``qwen3-8b`` at full width and depth with random weights from a
    seed: 96 requests, greedy, top-p and row-seeded rows. Every row must
@@ -79,8 +84,14 @@ Phases, in order; any failure raises and exits non-zero:
    must give the same layer-0 attention output (atol = rtol of the
    kernel phase) and the same logits with and without the prefix group
    of the classify prompt's shared pages;
+Serves 4, 7, 9 and 10 run at ``CUT_LAYERS`` (8) layers of their
+models' full widths (``cut_model``): their checks read routing,
+failover, rank recovery and constraints, and the whole smoke must fit
+its time limit with serve 11 in it. Serve 5 writes a second checkpoint
+of serve 1's first 8 layers beside the full one for serves 7, 9 and 10.
+
 6. serve 7, after serve 5's engine is closed: online serving over HTTP
-   on the checkpoint serve 5 wrote. A new ``LocalEngine`` (serve 1's
+   on the 8-layer checkpoint serve 5 wrote. A new ``LocalEngine`` (serve 1's
    geometry, ``prefix_split``, ``interactive_slots=8``, the radix prefix
    store on, as by default, ``kv_tiers=True`` and an admission budget of
    the pool's 64 x 2,048 tokens) behind ``server.start_server_thread`` on
@@ -122,7 +133,7 @@ Phases, in order; any failure raises and exits non-zero:
    interactive requests, the store's hits and tokens saved and the
    tier's operations, bytes and host time, and a ``serve7 summary``
    line after the ``kernels`` line;
-7. serve 9, after serve 7's engine is closed, on the same checkpoint:
+7. serve 9, after serve 7's engine is closed, on the same 8-layer checkpoint:
    the replica fleet (``serve_fleet``). Two ``LocalEngine`` replicas r0
    and r1 (serve 1's geometry at 32 slots, a 9.66 GB pool each,
    ``prefix_split``, ``interactive_slots=4``, the prefix store) share the
@@ -146,7 +157,7 @@ Phases, in order; any failure raises and exits non-zero:
    ``so.get_replay_log`` replayed through ``fleet.replay``; a split
    decode behind S on the survivor's runner. A ``serve9 summary`` line
    follows serve 8's;
-8. serve 10, after serve 9's engines are closed, on the same checkpoint
+8. serve 10, after serve 9's engines are closed, on the same 8-layer checkpoint
    (``serve_dp``): data-parallel engine ranks. Two processes of this
    script (``--dp-rank 0`` and ``1``, ``SUTRO_DP_WORLD=2`` on a free
    local port), each a ``LocalEngine`` at serve 9's geometry loading
@@ -213,8 +224,9 @@ Phases, in order; any failure raises and exits non-zero:
    without the prefix groups, and a fused window with
    the groups must not wait for the card
    (``torch.cuda.set_sync_debug_mode``);
-12. serve 4, on serve 2's runner after serve 2's job (the model is not
-   loaded again): a schema-constrained templated job of 96 rows, one
+12. serve 4, after serve 2's runner is freed, on a runner of
+   qwen3-30b-a3b's widths at 8 layers: a schema-constrained templated
+   job of 96 rows, one
    shared 1,024-token template with the classify system prompt at its
    head and a 16-256-token suffix each, at most 128 new tokens: 64
    greedy rows under the classify template's schema, 16 greedy under
@@ -229,7 +241,30 @@ Phases, in order; any failure raises and exits non-zero:
    forward's logits at each row's first position must match the
    decode forward's (two sets of 8 rows). It prints the mask core
    (native or Python) and the host time spent on masks;
-13. serve 3, after serve 2's runner is freed: ``qwen3-32b`` at full
+13. serve 11, after serve 4's runner is freed: device meshes
+   (``serve_mesh``). qwen3-30b-a3b at full width and depth on a tp=2
+   mesh of two rank processes, this one (rank 0) and the one its runner
+   starts, on ``cuda:(r % device_count)``: one card shared over gloo,
+   the runner capping each rank's allocator at its share of the card
+   (NCCL where a machine has a card a rank). Each rank draws serve 2's
+   seeded stream and keeps its half; its blocks' checksums must equal
+   those of serve 2's blocks (``mesh_reference``, taken on serve 2's
+   runner). Serve 2's 4 check rows' prefill logits, every rank
+   replaying serve 2's expert choices, must be within REL_L2 of serve
+   2's, and so must one decode step of those rows over the pages that
+   prefill wrote: split over their template, over the full table, and
+   through the plain versions (``rank_decode_check``); serve 2's first
+   64 templated rows, greedy, 32 new tokens (``prefix_split``), must
+   each come back once at their length, every kernel of serve 2's path
+   launch on both ranks and both ranks sample the same tokens in every
+   call; the rows token-equal to serve 2's greedy rows are counted. A
+   ``LocalEngine`` job with the mesh runner resident must succeed. Then
+   three phases on 4 layers of the same widths, each against one
+   device replaying its expert choices, prefill logits within REL_L2:
+   ep=2 (64 experts a rank), sp=2 (a ring prefill of 8,192 tokens) and
+   pp=2 (two stages, two microbatches), each with one fused window. A
+   ``serve11 summary`` line follows serve 10's;
+14. serve 3, after serve 11's ranks are stopped: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
    16-500 tokens and 8 of 1,200-1,900 (chunked prefill over an int8
    past). Every row must finish, the int8 paged decode and flash
@@ -250,8 +285,11 @@ available. ``python3 chip_smoke.py --kernels-only`` stops after phase 3
 (and prints neither record); ``--serve8-only`` runs serve 8 after it
 and prints serve 8's summary, not the records; ``--serve9-only`` runs
 the build, then serve 9 alone on a qwen3-8b checkpoint it writes from
-the seed, and prints serve 9's summary; ``--serve10-only`` does the same
-for serve 10. ``--dp-rank N`` is serve 10's rank process (``dp_rank``),
+the seed (its first 8 layers), and prints serve 9's summary;
+``--serve10-only`` does the same for serve 10; ``--serve11-only`` runs
+the build, then serve 11 against a serve 2 runner built and run here
+(``serve11_reference``); ``--nccl-probe`` first prints what NCCL says of
+two ranks on one card. ``--dp-rank N`` is serve 10's rank process (``dp_rank``),
 which serve 10 starts. ``python3 chip_smoke.py --pair-timing
 [--package DIR]`` only times the prefix carry and the grouped GEMM
 through their wrappers and prints one JSON line; with ``--package`` the
@@ -1446,24 +1484,117 @@ def kernel_gpt_oss(rng, torch, dev) -> list:
     return recs
 
 
+def check_shard_shapes(rng, torch, dev) -> dict:
+    """Every kernel of serve 11 and its phases at the shapes one rank
+    launches it with, against its plain version (atol = rtol = ATOL; the
+    KV write bit for bit). qwen3-30b-a3b at tp=2 is 16 query heads over 2
+    KV heads a rank: the prefix carry over serve 2's 16-page template and
+    the paged decode started from it (``check_carry``), the paged decode
+    over the full table, flash prefill over serve 2's check rows (and at
+    the ep/pp phases' 32 over 4); its pool row is KVH/tp*Dh = 256: the KV
+    write of a decode window over the 48 layers, and a commit of 0 to 8
+    accepted tokens a row; its expert GEMMs are [128, H, F/2 = 384] at
+    tp=2 and [64, H, 768] at ep=2 (unowned rows in the last group, as
+    ``moe_ep`` sorts them). Returns each case's max |err|."""
+    from sutro_tpu_torch.ops import flash_prefill as fp
+    from sutro_tpu_torch.ops import grouped_matmul as gm
+    from sutro_tpu_torch.ops import kv_write as kw
+    from sutro_tpu_torch.ops import paged_decode as pd
+    from sutro_tpu_torch.ops import prefix_carry as pc
+
+    nh, kvh = QNH // MESH_TP, QKVH // MESH_TP
+    errs = {}
+    x = _prefix_inputs(rng, torch, dev, nh=nh, kvh=kvh)
+    carry, dec, _ = check_carry(torch, pc, pd, x, dev, tag="tp2_")
+    errs.update({f"prefix_carry[{k}]": v for k, v in carry.items()})
+    errs.update({f"paged_decode_carry[{k}]": v for k, v in dec.items()})
+    base = (x["q"], x["k_pages"], x["v_pages"], x["page_table"], x["past_len"],
+            x["k_cur"], x["v_cur"])
+    win = dict(window=0, win_k=x["win_k"], win_v=x["win_v"], win_len=x["win_len"])
+    name = "paged_decode[tp2_full_table]"
+    errs[name] = check_close(name, pd.paged_decode_attention(*base, **win),
+                             pd.paged_decode_plain(*base, **win))
+    del x, base, win
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    bf = dict(dtype=torch.bfloat16, device=dev, generator=g)
+    for tag, heads, kv_heads, Bc in (("tp2", nh, kvh, 4), ("ep2_pp2", QNH, QKVH, 2)):
+        T = 1024 + 256
+        q = torch.randn((Bc, T, heads, DH), **bf)
+        k, v = (torch.randn((Bc, T, kv_heads, DH), **bf) for _ in range(2))
+        name = f"flash_prefill[{tag}_nh{heads}_kvh{kv_heads}_T{T}]"
+        errs[name] = check_close(name, fp.flash_prefill(q, k, v), fp.flash_prefill_plain(q, k, v))
+        del q, k, v
+
+    kd, layers = kvh * DH, 48
+    pools = [torch.randn((layers, QNP, PS, kd), **bf) for _ in range(2)]
+    table = np.zeros((QB, QMP), np.int32)
+    perm = rng.permutation(np.arange(1, QNP))
+    for b in range(QB):
+        table[b] = perm[b * QMP: (b + 1) * QMP]
+    table[3::11] = 0
+    steps = 8
+    past = rng.integers(0, QMP * PS - steps, QB)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    for tag, valid in (("window", np.full(QB, steps)), ("commit", rng.integers(0, steps + 1, QB))):
+        new = [torch.randn((layers, QB, steps, kd), **bf) for _ in range(2)]
+        args = (*new, i32(table), i32(past), i32(valid))
+        got, want = [p.clone() for p in pools], [p.clone() for p in pools]
+        kw.kv_write(*got, *args)
+        kw.kv_write_plain(*want, *args)
+        torch.cuda.synchronize()
+        name = f"kv_write[tp2_kd{kd}_{tag}]"
+        if not all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: pages >= 1 differ from the plain version")
+        errs[name] = 0.0
+        del new, args, got, want
+    del pools
+
+    for tag, (E, K, N, M) in {"tp2_gate_M512": (GE, GH, GF // MESH_TP, 512),
+                              "tp2_down_M512": (GE, GF // MESH_TP, GH, 512),
+                              "tp2_gate_M16384": (GE, GH, GF // MESH_TP, 16384),
+                              "ep2_gate_M512": (GE // 2, GH, GF, 512),
+                              "ep2_down_M16384": (GE // 2, GF, GH, 16384)}.items():
+        sizes = np.bincount(rng.integers(0, E, M // 2), minlength=E)
+        sizes[-1] += M - sizes.sum()    # the unowned rows (ep), or more routed ones
+        lhs = torch.randn((M, K), **bf)
+        rhs = torch.randn((E, K, N), **bf) * K ** -0.5
+        gs = i32(sizes)
+        name = f"grouped_matmul[{tag}_E{E}_N{N}]"
+        errs[name] = check_close(name, gm.grouped_matmul(lhs, rhs, gs),
+                                 gm.grouped_matmul_plain(lhs, rhs, gs))
+        del lhs, rhs
+    torch.cuda.empty_cache()
+    print("kernel shard shapes: " + json.dumps(errs), flush=True)
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(decode: bool = False):
     """Route the no-past attention and the expert GEMMs through their
-    plain versions (for the cache-free reference forward)."""
-    from sutro_tpu_torch.ops import attention, flash_prefill, grouped_matmul, moe
+    plain versions (for the cache-free reference forward); with
+    ``decode`` the paged decode and the prefix carry too."""
+    from sutro_tpu_torch.ops import (
+        attention, flash_prefill, grouped_matmul, moe, paged_decode, prefix_carry,
+    )
 
-    saved = attention.flash_prefill, moe.grouped_matmul
+    saved = (attention.flash_prefill, moe.grouped_matmul, attention.paged_decode_attention,
+             attention.prefix_attention_carry)
     attention.flash_prefill = flash_prefill.flash_prefill_plain
     moe.grouped_matmul = grouped_matmul.grouped_matmul_plain
+    if decode:
+        attention.paged_decode_attention = paged_decode.paged_decode_plain
+        attention.prefix_attention_carry = prefix_carry.prefix_attention_carry_plain
     try:
         yield
     finally:
-        attention.flash_prefill, moe.grouped_matmul = saved
+        (attention.flash_prefill, moe.grouped_matmul, attention.paged_decode_attention,
+         attention.prefix_attention_carry) = saved
 
 
 @contextlib.contextmanager
@@ -1515,18 +1646,13 @@ def check_prefill_logits(torch, runner, rows, label: str) -> float:
     through the plain versions; for a MoE model the plain forward takes
     the kernel run's expert choices (``routing``). Returns the relative
     L2 error."""
-    from sutro_tpu_torch.engine.kvcache import make_page_table, pages_needed
     from sutro_tpu_torch.models import transformer
 
     ecfg, mcfg = runner.ecfg, runner.mcfg
-    pages, nxt = [], 1
-    for r in rows:
-        n = pages_needed(len(r), ecfg.kv_page_size)
-        pages.append(list(range(nxt, nxt + n)))
-        nxt += n
     routes, flips = [], []
     with routing(record=routes):
-        got = runner.prefill_batch(rows, make_page_table(pages, ecfg.max_pages_per_seq))
+        got = runner.prefill_batch(rows, _pack_table(rows, 0, ecfg.kv_page_size,
+                                                     ecfg.max_pages_per_seq))
     ref = []
     with plain_kernels(), torch.no_grad():
         for i, r in enumerate(rows):
@@ -1600,10 +1726,11 @@ def run_batch(torch, runner, requests, kernels, seed: int, absent=(), stop_ids=(
         k.launches = 0
     results = {}
     batcher = ContinuousBatcher(runner, stop_ids=list(stop_ids), seed=seed)
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     t0 = time.monotonic()
     state = batcher.run(requests, on_result=lambda r: results.__setitem__(r.row_id, r))
-    torch.cuda.synchronize()
+    sync()
     wall = time.monotonic() - t0
     launches = {k.name: k.launches for k in (*kernels, *absent)}
     if state != "completed" or len(results) != len(requests):
@@ -1796,7 +1923,8 @@ def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0):
     """Serve 2: a templated classify/extract-style job on qwen3-30b-a3b
     with prefix_split on. Every request is one shared 1,024-token
     template (16 pages) and a distinct 16-256-token suffix. Returns the
-    summary and the runner (serve 4 runs on it)."""
+    summary, the runner and what serve 11 is held against
+    (``mesh_reference``)."""
     from sutro_tpu_torch.engine.config import EngineConfig
     from sutro_tpu_torch.engine.runner import ModelRunner
     from sutro_tpu_torch.engine.stepprofile import ENGINES
@@ -1850,8 +1978,8 @@ def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0):
 
     calls = {}
     count_decode_calls(runner, calls)
-    results, launches, batcher, wall = run_batch(
-        torch, runner, mixed_requests(prompts), kernels, seed)
+    requests = mixed_requests(prompts)
+    results, launches, batcher, wall = run_batch(torch, runner, requests, kernels, seed)
     if min(calls["decode_step_with_groups"], calls["decode_multi_async_with_groups"]) <= 0:
         raise AssertionError(f"both decode paths must run with prefix groups: {calls}")
     out = serve_summary(prompts, results, launches, calls, batcher.timer.summary(), wall,
@@ -1860,7 +1988,11 @@ def serve_templated(torch, kernels, dev, n_requests: int = 96, seed: int = 0):
     out["split_vs_full_rel_l2"] = [c[0] for c in split_checks]
     out["split_vs_full_layer0_attn_max_abs"] = [c[1] for c in split_checks]
     print("serve2: " + json.dumps(out), flush=True)
-    return out, runner
+    for name in DECODE_ENTRIES:   # the counting wrappers go
+        delattr(runner, name)
+    ref = mesh_reference(torch, runner, prompts, results,
+                         [r.row_id for r in requests if r.temperature == 0.0], seed=seed)
+    return out, runner, ref
 
 
 def check_verify_logits(torch, runner, template, rows, rng, label: str) -> float:
@@ -1933,9 +2065,46 @@ class MaskClock:
             setattr(cls, name, fn)
 
 
+def templated_runner(torch, model: str, dev, seed: int = 0):
+    """A runner of ``model`` at serve 2's geometry (``ENGINES``), random
+    weights from the seed."""
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.runner import ModelRunner
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    t0 = time.monotonic()
+    runner = ModelRunner(MODEL_CONFIGS[model], EngineConfig(**ENGINES[model][0], seed=seed),
+                         device=dev)
+    print(f"serve4: {model} built in {time.monotonic() - t0:.1f}s", flush=True)
+    return runner
+
+
+def serve11_reference(torch, dev, n_requests: int = 96, seed: int = 0) -> dict:
+    """Serve 11's reference when it runs alone (``--serve11-only``):
+    serve 2's runner and prompts, its greedy rows run here
+    (``mesh_reference``); the runner is freed before serve 11."""
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    model = "qwen3-30b-a3b"
+    runner = templated_runner(torch, model, dev, seed)
+    tok = ByteTokenizer(vocab_size=runner.mcfg.vocab_size)
+    rng = np.random.default_rng(seed + 1)
+    text = lambda n: "".join(rng.choice(ALPHABET, int(n)))  # noqa: E731
+    template = np.asarray(tok.encode(text(ENGINES[model][1])), np.int32)
+    prompts = [np.concatenate([template, np.asarray(tok.encode(text(n)), np.int32)])
+               for n in rng.integers(16, 257, n_requests)]
+    ref = mesh_reference(torch, runner, prompts, seed=seed)
+    del runner
+    free_card(torch, model)
+    return ref
+
+
 def serve_constrained(torch, runner, kernels, ngram_kernels, card: str,
                       n_requests: int = 96, seed: int = 0) -> dict:
-    """Serve 4, on serve 2's runner after serve 2's job: a constrained
+    """Serve 4, on a runner of qwen3-30b-a3b's widths at CUT_LAYERS layers
+    (``cut_model``; built after serve 2's runner is freed): a constrained
     templated job. Every row is one shared 1,024-token template (the
     classify system prompt at its head) and a 16-256-token suffix, 128
     new tokens at most: 64 greedy rows under the classify template's
@@ -2009,7 +2178,7 @@ def serve_constrained(torch, runner, kernels, ngram_kernels, card: str,
     def counted_commit(handle, accepted):
         # a window's rows that were live: a row accepts 0 .. steps
         # tokens; inactive slots have no pages (table row of zeros)
-        live = np.asarray(handle[3][:, 0].cpu()) > 0
+        live = np.asarray(runner._handles[handle.seq][3][:, 0].cpu()) > 0
         committed["tokens"] += int(np.asarray(accepted)[live].sum())
         committed["row_windows"] += int(live.sum())
         return commit(handle, accepted)
@@ -2217,23 +2386,6 @@ def flat_leaves(params, prefix: str = ""):
             yield prefix + k, v
 
 
-def leaf_checksums(torch, params) -> dict:
-    """name -> (sum of the leaf's 16/32-bit words, sum of each word times
-    its position mod 65521 plus 1), computed on the card in chunks of
-    2^26 words: a changed, moved or swapped word changes the pair."""
-    out = {}
-    for name, t in flat_leaves(params):
-        words = t.reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
-        s1 = s2 = 0
-        for lo in range(0, words.numel(), 1 << 26):
-            w = words[lo : lo + (1 << 26)].to(torch.int64)
-            pos = torch.arange(lo, lo + w.numel(), device=w.device, dtype=torch.int64)
-            s1 += int(w.sum())
-            s2 += int((w * (pos % 65521 + 1)).sum())
-        out[name] = (str(t.dtype), tuple(t.shape), s1, s2)
-    return out
-
-
 def hf_tensors(params, mcfg) -> list:
     """[(HF name, tensor)] of a dense Qwen3 parameter dict in the layout
     ``load_checkpoint`` reads: projections back to ``[out, in]`` (views;
@@ -2362,6 +2514,16 @@ def serve_facade(torch, runners: list, kernels, absent, card: str, home: Path,
     print(f"serve5: checkpoint of {ckpt['tensors']} tensors, {ckpt['bytes'] / 1e9:.2f} GB in "
           f"{ckpt['shards']} shards written to {root} in {write_s:.1f}s "
           f"(checksums {sum_s:.1f}s)", flush=True)
+    # serves 7, 9 and 10 load the first CUT_LAYERS layers (step 0 of
+    # serve 11's slice: their checks do not need the depth)
+    t0 = time.monotonic()
+    cut = cut_model(mcfg.name)
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    cut_ckpt = write_checkpoint(torch, first_layers(runner.params, CUT_LAYERS),
+                                MODEL_CONFIGS[cut], root / cut)
+    print(f"serve5: {cut}'s checkpoint of {cut_ckpt['bytes'] / 1e9:.2f} GB written in "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
     runner = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -2445,6 +2607,7 @@ def serve_facade(torch, runners: list, kernels, absent, card: str, home: Path,
         api._GenSession.on_result = real_on_result
 
     out = {"card": card, "checkpoint": {**ckpt, "dir": str(root), "write_s": write_s,
+                                        "cut_model": cut,
                                         "load_s": load.get("s")},
            "submit_s": submit_s, "submit_to_running_s": to_running, "wall_s": wall,
            "rows_per_s": sum(len(r) for r, _ in jobs.values()) / wall, "jobs": {}}
@@ -4237,9 +4400,10 @@ def fleet_summary(out: dict) -> dict:
 
 
 def fleet_checkpoint(torch, home: Path, model: str = "qwen3-8b", seed: int = 0) -> Path:
-    """Serve 9's checkpoint when it runs alone (``--serve9-only``):
-    serve 1's random weights from the seed, written as serve 5 writes
-    them; returns the weights root."""
+    """Serve 9's or 10's checkpoint when it runs alone (``--serve9-only``,
+    ``--serve10-only``): ``model``'s random weights from the seed (pass
+    the ``cut_model`` key for the serves' depth), written as serve 5
+    writes them; returns the weights root."""
     import gc
 
     from sutro_tpu_torch.engine.config import EngineConfig
@@ -4548,6 +4712,10 @@ def dp_rank(args) -> int:
     rank = int(args[args.index("--dp-rank") + 1])
     device = args[args.index("--device") + 1]
     models = args[args.index("--models") + 1].split(",")
+    for m in models:   # a model cut to fewer layers (``cut_model``)
+        base, _, layers = m.rpartition("-l")
+        if base and layers.isdigit():
+            cut_model(base, int(layers))
     tag = f"serve10-rank{rank}"
     home = Path(os.environ["SUTRO_HOME"])
     parent = os.getppid()
@@ -4982,6 +5150,587 @@ def dp_summary(out: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Serve 11: a device mesh (tp=2, two rank processes) on qwen3-30b-a3b
+# ---------------------------------------------------------------------------
+
+MESH_TP = 2
+# the depth of serve 11's ep/sp/pp phases (qwen3-30b-a3b's widths)
+PHASE_LAYERS = 4
+# the depth of serves 4, 7, 9 and 10 (their checks read routing,
+# failover, rank recovery and constraints, none of which needs 36 or 48
+# layers); serves 1, 2, 3, 5, 6, 8 and 11 keep the full depth
+CUT_LAYERS = 8
+
+
+def cut_model(name: str, layers: int = CUT_LAYERS) -> str:
+    """Register ``name`` at ``layers`` layers, widths unchanged, as the
+    engine key ``<name>-l<layers>`` in this process's config table and
+    ``stepprofile.ENGINES`` (serve 10's rank processes register it too);
+    returns the key."""
+    import dataclasses
+
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    key = f"{name}-l{layers}"
+    if key not in MODEL_CONFIGS:
+        MODEL_CONFIGS[key] = dataclasses.replace(MODEL_CONFIGS[name], name=key,
+                                                 num_layers=layers)
+        if name in ENGINES:
+            ENGINES[key] = ENGINES[name]
+    return key
+
+
+def first_layers(params, layers: int) -> dict:
+    """The parameter dict cut to its first ``layers`` layers (views)."""
+    return {**params, "layers": {k: v[:layers] for k, v in params["layers"].items()}}
+
+
+def leaf_checksums(torch, params, mesh=None, rank=None) -> dict:
+    """name -> (dtype, shape, sum of the leaf's 16/32-bit words, sum of
+    each word times its position mod 65521 plus 1): a changed, moved or
+    swapped word changes the pair. With a ``mesh``, of rank ``rank``'s
+    block of each leaf under the mesh's sharding rules, as the rank holds
+    it (its words in row-major order). Computed on the leaf's device
+    over slices of the leading axis, 2^26 words at a time."""
+    from sutro_tpu_torch.parallel.sharding import leaf_spec, spec_slices
+
+    chunk = 1 << 26
+    out = {}
+    for name, t in flat_leaves(params):
+        path = name.split(".")
+        shape = tuple(t.shape)
+        sl = ((slice(None),) * len(shape) if mesh is None
+              else spec_slices(leaf_spec(path, shape), shape, mesh, rank))
+        rows = range(*sl[0].indices(shape[0]))
+        step = max(1, chunk // max(1, int(np.prod(shape[1:]))))
+        s1 = s2 = pos = 0
+        local = shape[1:]
+        for lo in range(rows.start, rows.stop, step):
+            blk = t[lo: min(lo + step, rows.stop)][(slice(None),) + tuple(sl[1:])].contiguous()
+            local = blk.shape[1:]
+            words = blk.reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+            for a in range(0, words.numel(), chunk):
+                w = words[a: a + chunk].to(torch.int64)
+                p = torch.arange(pos, pos + w.numel(), device=w.device, dtype=torch.int64)
+                s1 += int(w.sum())
+                s2 += int((w * (p % 65521 + 1)).sum())
+                pos += w.numel()
+        out[name] = (str(t.dtype), (len(rows), *local), s1, s2)
+    return out
+
+
+def rank_checksums(runner) -> dict:
+    """A rank's own blocks (``ModelRunner.on_ranks``)."""
+    import torch
+
+    return leaf_checksums(torch, runner.params)
+
+
+def rank_launches(runner, zero: bool = False) -> dict:
+    """A rank's kernel launch counters (zeroed after the read with
+    ``zero``)."""
+    out = {k.name: k.launches for k in _port_kernels()}
+    if zero:
+        for k in _port_kernels():
+            k.launches = 0
+    return out
+
+
+_RANK_ROUTES = {}
+
+
+def install_routes(runner, routes, B: int, T: int) -> None:
+    """Replay, on this rank, the expert choices a single device's
+    prefill of the same ``[B, T]`` batch recorded (``routes``: one
+    ``[B*T, K]`` array a layer), in the order this rank's schedule calls
+    the router: every layer over the whole batch (tp, ep), this rank's
+    chunk of the sequence (sp), or its stage's layers microbatch by
+    microbatch (pp). ``remove_routes`` ends it."""
+    import torch
+
+    per = [np.asarray(r).reshape(B, T, -1) for r in routes]
+    if runner.pp > 1:
+        S, s = runner.pp, runner.mesh.coords()["pipe"]
+        Lb = len(per) // S
+        M = min(runner.ecfg.pp_microbatches or S, B)
+        mb = B // M
+        order = [per[lay][m * mb:(m + 1) * mb] for m in range(M)
+                 for lay in range(s * Lb, (s + 1) * Lb)]
+    elif runner.sp > 1:
+        from sutro_tpu_torch.ops.ring_attention import seq_chunk
+
+        sl = seq_chunk(runner.mesh, T)
+        order = [p[:, sl] for p in per]
+    else:
+        order = per
+    replay = [torch.as_tensor(np.ascontiguousarray(x.reshape(-1, x.shape[-1]))).to(runner.device)
+              for x in order]
+    flips = []
+    ctx = routing(replay=replay, flips=flips)
+    ctx.__enter__()
+    _RANK_ROUTES["on"] = (ctx, flips)
+
+
+def remove_routes(runner) -> int:
+    """End ``install_routes``; returns the token-layers whose own router
+    would have picked other experts."""
+    ctx, flips = _RANK_ROUTES.pop("on")
+    ctx.__exit__(None, None, None)
+    return int(sum(flips))
+
+
+def _pack_table(rows, room: int, page_size: int, max_pages: int) -> np.ndarray:
+    """Each row on its own pages 1.., with ``room`` tokens to spare."""
+    from sutro_tpu_torch.engine.kvcache import make_page_table, pages_needed
+
+    pages, nxt = [], 1
+    for r in rows:
+        n = pages_needed(len(r) + room, page_size)
+        pages.append(list(range(nxt, nxt + n)))
+        nxt += n
+    return make_page_table(pages, max_pages)
+
+
+def mesh_reference(torch, runner, prompts, results=None, greedy=(), n_rows: int = 64,
+                   n_new: int = 32, seed: int = 0) -> dict:
+    """What serve 11 is held against, taken on serve 2's single-device
+    runner: the kernel run's prefill logits of 4 rows with its expert
+    choices (``routing``), one decode step of those rows over the pages
+    that prefill wrote (``decode_check_inputs``; the full table, with its
+    expert choices), the checksums of each tp rank's block of every
+    leaf, and the first ``n_new`` tokens of the greedy rows of serve 2's
+    job (``results``; without them a greedy batch of ``n_rows`` rows
+    runs here)."""
+    from sutro_tpu_torch.engine.scheduler import GenRequest
+    from sutro_tpu_torch.parallel.mesh import make_mesh
+
+    rows = [np.asarray(p) for p in prompts[:4]]
+    table = _pack_table(rows, 0, runner.ecfg.kv_page_size, runner.ecfg.max_pages_per_seq)
+    routes = []
+    with routing(record=routes):
+        logits = runner.prefill_batch(rows, table)
+    step = decode_check_inputs(rows, table, logits, runner.ecfg.kv_page_size)
+    dec_routes = []
+    with torch.no_grad(), routing(record=dec_routes):
+        t = [torch.as_tensor(step[k], device=runner.device) for k in ("ids", "past", "table")]
+        dec, _, _ = runner._trunk_decode(t[0], t[1][:, None], t[1], t[2])
+    t0 = time.monotonic()
+    spec = make_mesh(1, 1, MESH_TP, [runner.device] * MESH_TP)
+    sums = [leaf_checksums(torch, runner.params, spec, r) for r in range(MESH_TP)]
+    sum_s = time.monotonic() - t0
+    if results is None:
+        greedy = range(n_rows)
+        results, _, _, _ = run_batch(
+            torch, runner, [GenRequest(row_id=i, prompt_ids=p, max_new_tokens=n_new,
+                                       temperature=0.0) for i, p in enumerate(prompts[:n_rows])],
+            [], seed, check_row=lambda _r, _x: None)
+    tokens = {i: list(results[i].token_ids[:n_new]) for i in greedy if i < n_rows}
+    print(f"serve2: serve 11's reference: {len(rows)} rows' logits, {len(routes)} router "
+          f"calls, checksums of {MESH_TP} tp blocks in {sum_s:.1f}s, {len(tokens)} greedy rows",
+          flush=True)
+    return dict(prompts=[np.asarray(p) for p in prompts], rows=rows, table=table,
+                logits=logits, routes=[r.cpu().numpy() for r in routes], decode_step=step,
+                decode_logits=dec[:, 0].float().cpu().numpy(),
+                decode_routes=[r.cpu().numpy() for r in dec_routes],
+                B=len(rows), T=max(len(r) for r in rows), checksums=sums, tokens=tokens,
+                checksum_s=sum_s)
+
+
+def rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def decode_check_inputs(rows, table, logits, page_size: int) -> dict:
+    """One decode step after ``rows``' prefill into ``table``: each row's
+    greedy next token at its length, and one shared-prefix group over
+    the rows' common template (row 0's pages; every row a member, its
+    own copy of the template's K/V left unread)."""
+    common = min(len(r) for r in rows)
+    for i in range(common):
+        if any(r[i] != rows[0][i] for r in rows):
+            common = i
+            break
+    n_pfx = common // page_size
+    return dict(ids=logits.argmax(-1).astype(np.int32)[:, None],
+                past=np.array([len(r) for r in rows], np.int32), table=table,
+                pages=np.asarray(table[0, :n_pfx], np.int32),
+                pfx_len=np.full(len(rows), n_pfx * page_size, np.int32))
+
+
+def rank_decode_check(runner, step: dict, routes, want) -> dict:
+    """On every rank of serve 11's runner: the decode step of
+    ``decode_check_inputs`` over the pages its prefill wrote (the KV
+    write at the rank's ``KVH/tp*Dh``) three ways, each with serve 2's
+    expert choices (``routes``): split (the prefix carry, then the paged
+    decode started from it), over the full table (the paged decode), and
+    over the full table through the plain versions (``plain_kernels``).
+    Returns each one's logits rel-L2 against serve 2's full-table step
+    ``want``."""
+    import torch
+
+    dev = runner.device
+    ids, past, table, pages, pfx_len = (torch.as_tensor(step[k], device=dev) for k in
+                                        ("ids", "past", "table", "pages", "pfx_len"))
+    replay = [torch.as_tensor(r).to(dev) for r in routes]
+    out = {}
+    with torch.no_grad():
+        for name, pfx, plain in (("split", ((pages, pfx_len),), False),
+                                 ("full_table", None, False), ("plain", None, True)):
+            with (plain_kernels(decode=True) if plain else contextlib.nullcontext()), \
+                    routing(replay=replay):
+                lg, _, _ = runner._trunk_decode(ids, past[:, None], past, table, pfx=pfx)
+            out[name] = rel_l2(lg[:, 0].float().cpu().numpy(), want)
+    return out
+
+
+def mesh_phase(torch, name: str, axes: dict, mcfg, devices, rows, seed: int = 0,
+               steps: int = 8) -> dict:
+    """One short phase of serve 11 on another axis: ``rows`` prefilled
+    and one fused window decoded on one device, then on a mesh of
+    ``axes`` over ``devices``, each rank replaying the single device's
+    expert choices. The prefill logits must agree within REL_L2 and every
+    rank sample the same tokens; the window's tokens against the single
+    device's are reported."""
+    import dataclasses
+    import gc
+
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.kvcache import pages_needed
+    from sutro_tpu_torch.engine.runner import ModelRunner
+
+    PS = 64
+    MP = max(pages_needed(len(r) + steps + 1, PS) for r in rows)
+    table = _pack_table(rows, steps + 1, PS, MP)
+    ecfg = EngineConfig(kv_page_size=PS, max_pages_per_seq=MP, decode_batch_size=len(rows),
+                        max_model_len=MP * PS, decode_multi_step=steps, seed=seed)
+    B, T = len(rows), max(len(r) for r in rows)
+    single = ModelRunner(mcfg, ecfg, device=devices[0])
+    routes = []
+    with routing(record=routes):
+        want = single.prefill_batch(rows, table)
+    args = (want.argmax(-1).astype(np.int32), np.array([len(r) for r in rows], np.int32),
+            table, 11, np.zeros(B, np.float32), np.ones(B, np.float32), steps)
+    want_toks, _ = single.decode_multi(*args)
+    routes = [r.cpu().numpy() for r in routes]
+    del single
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    mesh = ModelRunner(mcfg, dataclasses.replace(ecfg, **axes), device=devices)
+    build_s = time.monotonic() - t0
+    try:
+        mesh.on_ranks(rank_launches, True)
+        mesh.on_ranks(install_routes, routes, B, T)
+        got = mesh.prefill_batch(rows, table)
+        flips = sum(mesh.on_ranks(remove_routes))
+        toks, _ = mesh.decode_multi(*args)
+        launches = mesh.on_ranks(rank_launches)
+        report = mesh.mesh_report()
+    finally:
+        mesh.close()
+    rel = rel_l2(got, want)
+    out = dict(axes=axes, rows=B, tokens=T, layers=mcfg.num_layers, build_s=build_s,
+               logits_rel_l2=rel, flips=flips,
+               window_tokens_equal=float((toks == want_toks).mean()),
+               launches_by_rank=launches,
+               token_mismatches=sum(r["token_mismatches"] for r in report))
+    print(f"serve11 {name}: " + json.dumps(out), flush=True)
+    if not (np.isfinite(got).all() and rel < REL_L2):
+        raise AssertionError(f"serve11 {name}: prefill logits disagree with one device: {rel}")
+    if out["token_mismatches"]:
+        raise AssertionError(f"serve11 {name}: the ranks sampled different tokens")
+    return out
+
+
+def serve_mesh(torch, kernels, card: str, ref: dict, *, model="qwen3-30b-a3b", devices=None,
+               geometry=None, n_rows: int = 64, n_new: int = 32, job_rows: int = 16,
+               phase_layers: int = PHASE_LAYERS, sp_tokens: int = 8192, seed: int = 0) -> dict:
+    """Serve 11: ``model`` at full width and depth on a tp=2 mesh of two
+    rank processes (this process is rank 0; the runner starts rank 1),
+    on ``cuda:(r % device_count)``: both ranks share one card over gloo
+    (the runner caps each one's allocator at its share of the card), or
+    take a card each over NCCL. Held against serve 2 (``ref``,
+    ``mesh_reference``):
+
+    - each rank's checksums of its blocks equal serve 2's blocks';
+    - the prefill logits of serve 2's 4 check rows, every rank replaying
+      serve 2's expert choices, within REL_L2 of serve 2's;
+    - one decode step of those rows over the pages that prefill wrote,
+      split (the prefix carry), over the full table, and through the
+      plain versions, each within REL_L2 of serve 2's (``rank_decode_check``);
+    - serve 2's first ``n_rows`` templated rows (``prefix_split``), greedy,
+      ``n_new`` tokens: every row returned once at its length, every
+      kernel of ``kernels`` launched on every rank, every rank sampling
+      the same tokens in every call; the rows token-equal to serve 2's
+      are counted, not held;
+    - a ``LocalEngine`` job of ``job_rows`` rows with the mesh runner
+      resident must end SUCCEEDED;
+    - then the ep, sp and pp phases (``mesh_phase``) on ``phase_layers``
+      layers of the same widths: ep=2 (64 experts a rank), sp=2 (a ring
+      prefill of ``sp_tokens`` tokens), pp=2 (two stages, two
+      microbatches).
+
+    Returns what ``mesh_summary`` prints."""
+    from sutro_tpu_torch.engine.stepprofile import ENGINES
+    from sutro_tpu_torch.models.configs import MODEL_CONFIGS
+
+    t_start = time.monotonic()
+    mcfg = MODEL_CONFIGS[model]
+    fields = geometry or ENGINES[model][0]
+    if devices is None:
+        n = torch.cuda.device_count()
+        devices = [f"cuda:{r % n}" for r in range(MESH_TP)]
+    return _serve_mesh(torch, kernels, card, ref, mcfg, fields, devices, n_rows, n_new,
+                       job_rows, phase_layers, sp_tokens, seed, t_start)
+
+
+def _serve_mesh(torch, kernels, card, ref, mcfg, fields, devices, n_rows, n_new, job_rows,
+                phase_layers, sp_tokens, seed, t_start) -> dict:
+    import dataclasses
+    import gc
+
+    out = _mesh_job(torch, kernels, card, ref, mcfg, fields, devices, n_rows, n_new, job_rows,
+                    seed)
+    gc.collect()   # the tp=2 runner's last references went with _mesh_job's frame
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        print(f"serve11: after the tp=2 runner, {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+              "still allocated here", flush=True)
+    # the other axes, a few layers of the same widths each
+    model = mcfg.name
+    small = dataclasses.replace(mcfg, name=f"{model}-l{phase_layers}", num_layers=phase_layers)
+    rows4 = [np.asarray(p) for p in ref["prompts"][:4]]
+    long_row = [np.tile(ref["prompts"][0], -(-sp_tokens // len(ref["prompts"][0])))[:sp_tokens]]
+    out["phases"] = {
+        "ep": mesh_phase(torch, "ep", {"ep": 2}, small, devices, rows4, seed),
+        "sp": mesh_phase(torch, "sp", {"sp": 2}, small, devices, long_row, seed),
+        "pp": mesh_phase(torch, "pp", {"pp": 2, "pp_microbatches": 2}, small, devices, rows4,
+                         seed),
+    }
+    out["serve_s"] = time.monotonic() - t_start
+    print("serve11: " + json.dumps({k: v for k, v in out.items() if k != "phases"}), flush=True)
+    return out
+
+
+def _mesh_job(torch, kernels, card, ref, mcfg, fields, devices, n_rows, n_new, job_rows,
+              seed) -> dict:
+    """Serve 11's tp=2 runner: its checks, the job and the LocalEngine
+    job (``serve_mesh``); the runner is stopped on return."""
+    from sutro_tpu_torch.engine.api import LocalEngine, resolve_model
+    from sutro_tpu_torch.engine.config import EngineConfig
+    from sutro_tpu_torch.engine.runner import ModelRunner
+    from sutro_tpu_torch.engine.scheduler import GenRequest
+    from sutro_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    model = mcfg.name
+    ecfg = EngineConfig(**fields, seed=seed, tp=MESH_TP)
+    if torch.cuda.is_available():   # rank 0's peak is this serve's alone
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    runner = ModelRunner(mcfg, ecfg, device=devices)
+    build_s = time.monotonic() - t0
+    out = dict(card=card, model=model, devices=[str(d) for d in devices],
+               backend=runner.mesh.backend, build_s=build_s)
+    try:
+        ready = runner.mesh_report()
+        out["ready_s"] = [r["ready_s"] for r in ready]
+        print(f"serve11: {model} L={mcfg.num_layers} on tp={MESH_TP} over {out['devices']} "
+              f"({out['backend']}), ranks ready {out['ready_s']} s, built in {build_s:.1f}s",
+              flush=True)
+        # every rank's blocks are bit for bit serve 2's
+        got_sums = runner.on_ranks(rank_checksums)
+        for r, (got, want) in enumerate(zip(got_sums, ref["checksums"])):
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            if bad or set(got) != set(want):
+                raise AssertionError(f"serve11: rank {r}'s blocks differ from serve 2's: {bad}")
+        out["checksummed_leaves"] = len(ref["checksums"][0])
+        # prefill logits with serve 2's expert choices on every rank
+        runner.on_ranks(install_routes, ref["routes"], ref["B"], ref["T"])
+        logits = runner.prefill_batch(ref["rows"], ref["table"])
+        out["flips"] = sum(runner.on_ranks(remove_routes))
+        rel = out["logits_rel_l2"] = rel_l2(logits, ref["logits"])
+        print(f"serve11: prefill logits vs serve 2's (its routing on both ranks): "
+              f"rel_l2={rel:.3e} argmax_agree="
+              f"{int((logits.argmax(-1) == ref['logits'].argmax(-1)).sum())}/{ref['B']}",
+              flush=True)
+        if not (np.isfinite(logits).all() and rel < REL_L2):
+            raise AssertionError(f"serve11: prefill logits disagree with serve 2's: {rel}")
+        # a decode step over the pages the mesh's KV write filled
+        dec = runner.on_ranks(rank_decode_check, ref["decode_step"], ref["decode_routes"],
+                              ref["decode_logits"])
+        out["decode_rel_l2"] = dec
+        print(f"serve11: decode step vs serve 2's over the pages just written, by rank: "
+              f"{json.dumps(dec)}", flush=True)
+        if not all(np.isfinite(v) and v < REL_L2 for r in dec for v in r.values()):
+            raise AssertionError(f"serve11: decode logits disagree with serve 2's: {dec}")
+
+        # serve 2's templated rows, greedy
+        prompts = ref["prompts"][:n_rows]
+        reqs = [GenRequest(row_id=i, prompt_ids=p, max_new_tokens=n_new, temperature=0.0)
+                for i, p in enumerate(prompts)]
+
+        def full(_runner, r):
+            if r.error or r.finish_reason != "length" or len(r.token_ids) != n_new:
+                raise AssertionError(f"serve11: row {r.row_id}: {r.finish_reason!r} "
+                                     f"{len(r.token_ids)} tokens {r.error!r}")
+
+        runner.on_ranks(rank_launches, True)
+        before = runner.mesh_report()
+        calls = {}
+        count_decode_calls(runner, calls)
+        results, launches, batcher, wall = run_batch(torch, runner, reqs, kernels, seed,
+                                                     check_row=full)
+        for name in DECODE_ENTRIES:   # the counting wrappers go
+            delattr(runner, name)
+        if sorted(results) != list(range(n_rows)):
+            raise AssertionError("serve11: rows missing or returned twice")
+        if calls["decode_multi_async_with_groups"] <= 0:
+            raise AssertionError(f"serve11: no fused window ran with the prefix group: {calls}")
+        by_rank = runner.on_ranks(rank_launches)
+        for k in kernels:
+            idle = [r for r, c in enumerate(by_rank) if c[k.name] <= 0]
+            if idle:
+                raise AssertionError(f"serve11: kernel {k.name} not launched on ranks {idle}")
+        after = runner.mesh_report()
+        if any(r["token_mismatches"] for r in after) or not all(
+                r["token_checks"] > b["token_checks"] for r, b in zip(after, before)):
+            raise AssertionError(f"serve11: the ranks' sampled tokens differ: {after}")
+        n_gen = sum(len(r.token_ids) for r in results.values())
+        equal = [i for i, toks in ref["tokens"].items() if results[i].token_ids == toks]
+        timer = batcher.timer.summary()
+        out.update(
+            rows=n_rows, generated_tokens=n_gen, wall_s=wall,
+            decode_tok_s=n_gen / timer["decode"]["total_s"], decode_calls=calls,
+            launches={name: sum(c[name] for c in by_rank) for name in by_rank[0]},
+            launches_by_rank=by_rank,
+            token_equal_to_serve2=f"{len(equal)}/{len(ref['tokens'])}",
+            token_checks=[r["token_checks"] for r in after],
+        )
+        # one fused window alone: the collectives it issues and their host time
+        B = 8
+        table = np.zeros((B, ecfg.max_pages_per_seq), np.int32)
+        table[:, 0] = np.arange(1, B + 1)
+        w_args = (np.ones(B, np.int32), np.full(B, 5, np.int32), table, 3,
+                  np.zeros(B, np.float32), np.ones(B, np.float32), ecfg.decode_multi_step)
+        runner.decode_multi(*w_args)
+        a = runner.mesh_report()
+        t0 = time.monotonic()
+        runner.decode_multi(*w_args)
+        w_s = time.monotonic() - t0
+        b = runner.mesh_report()
+        out["window"] = dict(
+            steps=ecfg.decode_multi_step, rows=B, wall_ms=1e3 * w_s,
+            collectives=[y["collectives"] - x["collectives"] for x, y in zip(a, b)],
+            collective_host_ms=[1e3 * (y["collective_s"] - x["collective_s"])
+                                for x, y in zip(a, b)])
+
+        # the job API on the mesh: a LocalEngine with this runner resident
+        key, _, _ = resolve_model("qwen-3-30b-a3b" if model == "qwen3-30b-a3b" else model)
+        tok = ByteTokenizer(vocab_size=mcfg.vocab_size)
+        eng = LocalEngine(ecfg, device=devices)
+        try:
+            eng._tok_cache[key] = tok
+            eng._runner_cache[key] = (runner, tok)
+            rng = np.random.default_rng(seed + 11)
+            rows = ["".join(rng.choice(ALPHABET, int(n))) for n in rng.integers(16, 200, job_rows)]
+            t0 = time.monotonic()
+            jid = eng.submit_batch_inference({
+                "model": key, "inputs": rows,
+                "sampling_params": {"temperature": 0.0, "max_new_tokens": 16}})
+            while eng.job_status(jid) not in ("SUCCEEDED", "FAILED", "CANCELLED"):
+                if time.monotonic() - t0 > 600:
+                    raise AssertionError(f"serve11: job {jid} stuck in {eng.job_status(jid)}")
+                time.sleep(0.05)
+            job_s = time.monotonic() - t0
+            status = eng.job_status(jid)
+            if status != "SUCCEEDED":
+                raise AssertionError(f"serve11: the LocalEngine job ended {status}: "
+                                     f"{eng.get_job(jid)}")
+            res = eng.job_results(jid)
+            if len(res["outputs"]) != job_rows:
+                raise AssertionError(f"serve11: the job returned {len(res['outputs'])} rows")
+            gen = int(sum(res.get("gen_tokens") or [16 * job_rows]))
+            out["job"] = dict(id=jid, status=status, rows=job_rows, wall_s=job_s,
+                              tok_s=gen / job_s)
+        finally:
+            eng._runner_cache.clear()
+            eng.close(timeout=60)
+        peak = runner.mesh_report()
+        out["peak_gb"] = [r["peak_bytes"] / 1e9 for r in peak]
+        print(f"serve11: job of {n_rows} rows x {n_new} tokens in {out['wall_s']:.1f}s "
+              f"({out['decode_tok_s']:.1f} decode tok/s over both ranks), "
+              f"{out['token_equal_to_serve2']} token-equal to serve 2, window "
+              f"{out['window']}, LocalEngine job {out['job']}, peak GB {out['peak_gb']}",
+              flush=True)
+    finally:
+        runner.close()
+    return out
+
+
+def mesh_summary(out: dict) -> dict:
+    return dict(
+        backend=out["backend"], devices=out["devices"], ready_s=out["ready_s"],
+        peak_gb=out["peak_gb"], job_tok_s=out["job"]["tok_s"],
+        decode_tok_s=out["decode_tok_s"],
+        window_collectives=out["window"]["collectives"],
+        window_collective_host_ms=out["window"]["collective_host_ms"],
+        logits_rel_l2=out["logits_rel_l2"], flips=out["flips"],
+        decode_rel_l2=out["decode_rel_l2"][0],
+        token_equal_to_serve2=out["token_equal_to_serve2"],
+        phases_rel_l2={k: v["logits_rel_l2"] for k, v in out["phases"].items()},
+        phases_flips={k: v["flips"] for k, v in out["phases"].items()},
+        serve_s=out["serve_s"],
+    )
+
+
+def nccl_shared_card_probe(timeout: float = 120.0) -> str:
+    """What NCCL says when two ranks share one card (``--nccl-probe``):
+    two processes build a 2-rank mesh on ``cuda:0`` with the backend
+    forced to NCCL; each rank's outcome is returned."""
+    import multiprocessing
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="sutro-nccl-probe-")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_nccl_probe_rank, args=(r, d), daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    lines = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+            lines.append(f"rank {r}: still waiting after {timeout:.0f}s (killed)")
+        else:
+            f = Path(d) / f"rank{r}.txt"
+            lines.append(f"rank {r}: " + (f.read_text() if f.exists() else f"exit {p.exitcode}"))
+    return " | ".join(lines)
+
+
+def _nccl_probe_rank(rank: int, d: str) -> None:
+    import torch
+
+    from sutro_tpu_torch.parallel.mesh import file_store, make_mesh
+
+    try:
+        mesh = make_mesh(1, 1, 2, ["cuda:0", "cuda:0"])
+        mesh.backend = "nccl"
+        mesh.connect(file_store(str(Path(d) / "store"), 2), rank, timeout=60)
+        x = torch.ones(1, device="cuda:0")
+        mesh.world.all_reduce(x)
+        torch.cuda.synchronize()
+        msg = f"NCCL all-reduce ran: {x.item()}"
+    except Exception as e:  # the probe reports what NCCL raised
+        msg = f"{type(e).__name__}: {' '.join(str(e).split())[:600]}"
+    (Path(d) / f"rank{rank}.txt").write_text(msg)
+
+
 def free_card(torch, model: str) -> None:
     """The previous serve's runner must be gone before the next one."""
     import gc
@@ -5092,14 +5841,25 @@ def run(torch, args, home: Path) -> int:
             print(f"sass[{k.source.name}]: {fn}: HMMA/HGMMA={n['mma']} LDGSTS={n['cp_async']} "
                   f"UTMALDG={n['tma']}", flush=True)
 
+    cut8b = cut_model("qwen3-8b")
     if "--serve9-only" in args:   # the build, then serve 9 on its own checkpoint
-        s9 = serve_fleet(torch, facade_path, facade_absent, card, fleet_checkpoint(torch, home))
+        s9 = serve_fleet(torch, facade_path, facade_absent, card,
+                         fleet_checkpoint(torch, home, cut8b), model=cut8b)
         print("serve9 summary: " + json.dumps(fleet_summary(s9)))
         print(f"card: {card}")
         return 0
     if "--serve10-only" in args:   # the build, then serve 10 on its own checkpoint
-        s10 = serve_dp(torch, facade_path, facade_absent, card, fleet_checkpoint(torch, home))
+        s10 = serve_dp(torch, facade_path, facade_absent, card,
+                       fleet_checkpoint(torch, home, cut8b), model=cut8b)
         print("serve10 summary: " + json.dumps(dp_summary(s10)))
+        print(f"card: {card}")
+        return 0
+    if "--nccl-probe" in args:    # what NCCL says of two ranks on one card
+        print(f"nccl probe: {nccl_shared_card_probe()}", flush=True)
+    if "--serve11-only" in args:  # the build, the shard shapes, then serve 11
+        check_shard_shapes(np.random.default_rng(1311), torch, dev)
+        s11 = serve_mesh(torch, templated_path, card, serve11_reference(torch, dev))
+        print("serve11 summary: " + json.dumps(mesh_summary(s11)))
         print(f"card: {card}")
         return 0
 
@@ -5119,6 +5879,7 @@ def run(torch, args, home: Path) -> int:
                   f"({rec['bound_by']}) max_abs_err={rec['max_abs_err']:.3e} "
                   f"cases={json.dumps(rec['cases'])} {json.dumps(extra)}", flush=True)
             records.append(rec)
+    check_shard_shapes(rng, torch, dev)
     if "--kernels-only" in args:
         print(f"card: {card}")
         return 0
@@ -5140,15 +5901,19 @@ def run(torch, args, home: Path) -> int:
                                              card, home)
     free_card(torch, "qwen3-8b")
     # serve 7: online serving over HTTP on the checkpoint serve 5 wrote
+    # serves 7, 9 and 10 load its first CUT_LAYERS layers (cut8b)
     ckpt = Path(served["qwen3-8b façade"]["checkpoint"]["dir"])
     try:
-        served["qwen3-8b serving"] = serve_online(torch, facade_path, facade_absent, card, ckpt)
+        served["qwen3-8b serving"] = serve_online(torch, facade_path, facade_absent, card, ckpt,
+                                                  model=cut8b)
         free_card(torch, "qwen3-8b")
         # serve 9: the replica fleet, two replicas of the same checkpoint
-        served["qwen3-8b fleet"] = serve_fleet(torch, facade_path, facade_absent, card, ckpt)
+        served["qwen3-8b fleet"] = serve_fleet(torch, facade_path, facade_absent, card, ckpt,
+                                               model=cut8b)
         free_card(torch, "qwen3-8b")
         # serve 10: two data-parallel rank processes of the same checkpoint
-        served["qwen3-8b dp"] = serve_dp(torch, facade_path, facade_absent, card, ckpt)
+        served["qwen3-8b dp"] = serve_dp(torch, facade_path, facade_absent, card, ckpt,
+                                         model=cut8b)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     free_card(torch, "qwen3-8b")
@@ -5160,15 +5925,22 @@ def run(torch, args, home: Path) -> int:
     served["qwen3-emb-0.6b"] = serve_embed(torch, embed_path, embed_absent, card, home)
     # serve 2 needs the card to itself: 61 GB of weights and a 9.7 GB pool
     free_card(torch, EMBED_MODEL)
-    s2, runner = serve_templated(torch, templated_path, dev)
+    s2, runner, ref = serve_templated(torch, templated_path, dev)
     served["qwen3-30b-a3b"] = s2
     print(f"serve2: card={card} prefill_tok_s={s2['prefill_tok_s']:.1f} "
           f"decode_tok_s={s2['decode_tok_s']:.1f} wall_s={s2['wall_s']:.2f}", flush=True)
-    # serve 4 on serve 2's runner: the 61 GB model is not loaded twice
+    del runner
+    free_card(torch, "qwen3-30b-a3b")
+    # serve 4 at CUT_LAYERS layers of the same widths
+    runner = templated_runner(torch, cut_model("qwen3-30b-a3b"), dev)
     s4 = serve_constrained(torch, runner, templated_path, ngram_path, card)
     served["qwen3-30b-a3b constrained"] = s4
     served["qwen3-30b-a3b n-gram"] = s4["ngram"]
     del runner
+    free_card(torch, "qwen3-30b-a3b")
+    # serve 11: qwen3-30b-a3b on a tp=2 mesh of two rank processes
+    served["qwen3-30b-a3b tp=2"] = serve_mesh(torch, templated_path, card, ref)
+    del ref
     # serve 3: 33.6 GB of int8 weights and a 17.3 GB int8 pool
     free_card(torch, "qwen3-30b-a3b")
     s3 = served["qwen3-32b"] = serve_int8(torch, int8_path, int8_absent, dev)
@@ -5200,6 +5972,7 @@ def run(torch, args, home: Path) -> int:
     print("serve8 summary: " + json.dumps(graphs_summary(served["gpt-oss-20b graphs"])))
     print("serve9 summary: " + json.dumps(fleet_summary(served["qwen3-8b fleet"])))
     print("serve10 summary: " + json.dumps(dp_summary(served["qwen3-8b dp"])))
+    print("serve11 summary: " + json.dumps(mesh_summary(served["qwen3-30b-a3b tp=2"])))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -197,7 +197,9 @@ class LocalEngine:
     """The job API. Its runners live on ``device``: the CUDA card by
     default; tests pass ``device="cpu"``, which every ``ModelRunner``
     and checkpoint load then takes (``EngineConfig`` has no device
-    field)."""
+    field). A list of devices, one a rank, runs each runner on a mesh
+    (``EngineConfig.tp/ep/sp/pp``; engine/runner.py), and each rank
+    loads its own block of a checkpoint."""
 
     def __init__(self, ecfg: Optional[EngineConfig] = None, *, device="cuda"):
         self.ecfg = ecfg or load_engine_config()
@@ -1022,14 +1024,11 @@ class LocalEngine:
             evicted_store.close()
         if evicted_tier is not None:
             evicted_tier.close()
-        params = None
-        if weights_dir:
-            from .weights import load_checkpoint
-
-            params = load_checkpoint(
-                weights_dir, mcfg, self.ecfg, device=self.device
-            )
-        runner = ModelRunner(mcfg, self.ecfg, params=params, device=self.device)
+        # the runner loads the checkpoint: on a mesh each rank reads its
+        # own block of it
+        runner = ModelRunner(
+            mcfg, self.ecfg, device=self.device, checkpoint=weights_dir or None
+        )
         with self._lock:
             self._runner_cache[engine_key] = (runner, tok)
         return runner, tok
@@ -1264,7 +1263,7 @@ class LocalEngine:
         dp = DPWorld.from_env()
         # on this thread: the one that runs the batcher (torch.profiler
         # records CPU ops only on the thread that started it)
-        with job_trace(self.ecfg.profile_dir, job_id, self.device):
+        with job_trace(self.ecfg.profile_dir, job_id, runner.device):
             if dp is not None:
                 return self._run_dp_generation(job_id, rec, sess, batcher, dp)
             return self._run_cobatch_session(job_id, engine_key, sess, batcher)

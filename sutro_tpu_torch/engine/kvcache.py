@@ -64,12 +64,15 @@ class KVCache:
 def alloc_cache(
     mcfg: ModelConfig, ecfg: EngineConfig, num_pages: int,
     dtype: torch.dtype = torch.bfloat16, device="cuda",
+    layers: Optional[int] = None, kv_heads: Optional[int] = None,
 ) -> KVCache:
+    """The pool; under a mesh a rank's block of it: ``layers`` (L/pp)
+    and ``kv_heads`` (KVH/tp) of the model's."""
     shape = (
-        mcfg.num_layers,
+        layers or mcfg.num_layers,
         num_pages,
         ecfg.kv_page_size,
-        mcfg.num_kv_heads * mcfg.head_dim,
+        (kv_heads or mcfg.num_kv_heads) * mcfg.head_dim,
     )
     mode = getattr(ecfg, "kv_quantize", None)
     if mode == "int8":
@@ -87,11 +90,18 @@ def alloc_cache(
     )
 
 
-def _quantize_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_tokens(
+    x: torch.Tensor, amax_group=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., KD] float -> (int8 values, f32 per-token scales [...]),
-    the reference's formula: ``scale = max(amax / 127, 1e-8)``."""
+    the reference's formula: ``scale = max(amax / 127, 1e-8)``. Under TP
+    (``amax_group``: the mesh's ``model`` group) a rank holds a block of
+    KD; the reference's scale is over the FULL fused axis, so the amax
+    is MAX-reduced over the group first and the shards agree."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
+    if amax_group is not None:
+        amax_group.all_reduce(amax, "max")
     scale = torch.clamp(amax / 127.0, min=1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
@@ -174,6 +184,7 @@ def write_kv(
     page_table: torch.Tensor,    # [B, MP] int32
     start: torch.Tensor,         # [B] int32 global position of chunk token 0
     valid_len: torch.Tensor,     # [B] int32 real tokens in chunk
+    amax_group=None,             # int8 pool under TP (_quantize_tokens)
 ) -> None:
     """Write a chunk's K/V into the cache's pages IN PLACE (the kernel
     of ops/kv_write.py on the card; an int8 pool quantizes per token
@@ -183,7 +194,8 @@ def write_kv(
     KD = cache.k_pages.shape[-1]
     if cache.quantized:
         _write_quantized(cache, k_chunk.reshape(L, B, T, KD),
-                         v_chunk.reshape(L, B, T, KD), page_table, start, valid_len)
+                         v_chunk.reshape(L, B, T, KD), page_table, start, valid_len,
+                         amax_group)
         return
     dt = cache.k_pages.dtype
     kv_write(
@@ -194,7 +206,7 @@ def write_kv(
     )
 
 
-def _write_quantized(cache, k, v, page_table, start, valid_len) -> None:
+def _write_quantized(cache, k, v, page_table, start, valid_len, amax_group=None) -> None:
     """The int8 pool's write (the reference's ``write_kv`` quantized
     branch): quantize per token, then scatter values and scales. Tokens
     to drop are sent to flat slot 0 (page 0) carrying slot 0's current
@@ -210,7 +222,7 @@ def _write_quantized(cache, k, v, page_table, start, valid_len) -> None:
     flat = torch.where(keep, (page * PS + pos % PS).reshape(-1), 0)
     for pages, scales, x in ((cache.k_pages, cache.k_scale, k),
                              (cache.v_pages, cache.v_scale, v)):
-        q, sc = _quantize_tokens(x.reshape(L, B * T, KD))
+        q, sc = _quantize_tokens(x.reshape(L, B * T, KD), amax_group)
         pf = pages.view(L, NP * PS, KD)
         sf = scales.view(L, NP * PS)
         pf[:, flat] = torch.where(keep[None, :, None], q, pf[:, :1])

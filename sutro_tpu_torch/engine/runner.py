@@ -37,14 +37,32 @@ reference): weight-only int8 projections (ops/quant.py, dequantized
 before each product) and int8 KV pages with per-token scales
 (engine/kvcache.py), read by the paged-decode kernel's int8 option.
 
-Not ported yet, and raising: device meshes (multi-GPU) and
-``embed_batch``.
+Device meshes (``EngineConfig.tp/ep/sp/pp`` > 1, parallel/): ``device``
+is then a list of devices, one rank per entry (a single ``"cuda"`` means
+``cuda:0..W-1``, ``"cpu"`` means W CPU ranks). This runner is rank 0 and
+starts the other ranks itself (parallel/ranks.py); each holds its block
+of the weights (parallel/sharding.py, pipeline.py) and of the pool
+``[L/pp, NP, PS, KVH/tp*Dh]``, and runs every entry point rank 0 runs.
+TP and EP collectives are in models/transformer.py and ops/moe_ep.py;
+sp > 1 prefills without a past through the ring (ops/ring_attention.py);
+pp > 1 prefills by GPipe and decodes stage by stage
+(parallel/pipeline.py). As in the reference, int8 KV is ignored under pp
+(with a warning) and a suffix or chunked prefill over a paged past is
+refused under sp/pp. The mesh's ``data`` axis is not ported: ``dp > 1``
+inside a mesh raises (engine-level data parallelism is
+engine/dphost.py).
+
 The reference's ``kv_chunk`` (TPU DMA chunking) has no counterpart, so
 ``alloc_pages == num_pages``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import threading
+import time
+import warnings
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -60,6 +78,9 @@ from ..ops.sampling import (
     fold_in,
     sample,
 )
+from ..parallel import sharding
+from ..parallel.mesh import make_mesh, mesh_timeout, shared_card_fraction
+from ..parallel.ranks import RankPool, entry
 from . import faults
 from .config import EngineConfig
 from .kvcache import alloc_cache, write_kv
@@ -79,6 +100,31 @@ def set_matmul_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+@dataclasses.dataclass(frozen=True)
+class WindowHandle:
+    """A ``decode_window`` handle: the runner (every rank of a mesh)
+    keeps the window's K/V under this number until its commit."""
+    seq: int
+
+
+def rank_report(runner: "ModelRunner") -> dict:
+    """One rank's mesh figures: its device, seconds from its start to
+    its runner built, peak device bytes, the collectives it issued and
+    the host seconds they took, its token checks."""
+    cuda = runner.device.type == "cuda"
+    groups = [g for g in runner.mesh.groups.values() if g is not None]
+    return {
+        "rank": runner.mesh.rank,
+        "device": str(runner.device),
+        "ready_s": runner.ready_s,
+        "peak_bytes": torch.cuda.max_memory_allocated(runner.device) if cuda else 0,
+        "collectives": sum(g.calls for g in groups),
+        "collective_s": sum(g.seconds for g in groups),
+        "token_checks": runner.token_checks,
+        "token_mismatches": runner.token_mismatches(),
+    }
+
+
 class ModelRunner:
     # the scheduler builds shared-prefix groups (``pfx``) for the decode
     # entry points only when the runner takes split decode
@@ -92,10 +138,22 @@ class ModelRunner:
         *,
         num_pages: Optional[int] = None,
         device="cuda",
+        checkpoint: Optional[str] = None,
+        _rank: Optional[tuple] = None,   # (rank, store or its path, start time): a worker
     ):
+        t0 = time.time() if _rank is None else _rank[2]
         self.mcfg = mcfg
+        self._entry = threading.local()
+        self._capped = None
+        if ecfg.quantize not in (None, "int8"):
+            raise ValueError(f"Unknown quantize mode {ecfg.quantize!r} (only 'int8')")
+        devices = self._mesh_devices(ecfg, device)
+        self.mesh = self._pool = None
+        self.sp = self.pp = 1
+        if len(devices) > 1:
+            ecfg = self._connect(mcfg, ecfg, params, num_pages, devices, checkpoint, _rank, t0)
         self.ecfg = ecfg
-        self.device = torch.device(device)
+        self.device = self.mesh.device if self.mesh is not None else devices[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "ModelRunner: no CUDA device is available; pass "
@@ -104,37 +162,206 @@ class ModelRunner:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"ModelRunner: unsupported device {self.device}")
         set_matmul_precision()
-        if ecfg.quantize not in (None, "int8"):
-            raise ValueError(f"Unknown quantize mode {ecfg.quantize!r} (only 'int8')")
         quantize = ecfg.quantize == "int8"
-        n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if any(
-            (getattr(ecfg, axis) or 1) > 1 for axis in ("dp", "tp", "ep", "sp", "pp")
-        ) or int(np.prod(ecfg.resolved_mesh(max(n_dev, 1)))) > 1:
-            raise NotImplementedError(
-                "device meshes (dp/tp/ep/sp/pp > 1) are not ported to the "
-                "CUDA engine yet (ROADMAP.md, multi-GPU)"
-            )
         self.dtype = getattr(torch, ecfg.param_dtype)
-        if params is None:
+        mesh = self.mesh
+        spec_fn = None
+        if mesh is not None and self.pp > 1:
+            from ..parallel.pipeline import pp_leaf_spec
+
+            spec_fn = pp_leaf_spec
+        if params is not None:
+            if quantize and not any(
+                is_quantized(t)
+                for t in (*params["layers"].values(), params.get("lm_head"))
+            ):
+                # quantized whole, then cut: a row-parallel leaf's
+                # per-channel scale reduces over the axis that is split
+                params = quantize_params(params)
+            if mesh is not None:
+                specs = None
+                if spec_fn is not None:
+                    from ..parallel.pipeline import pp_param_shardings
+
+                    specs = pp_param_shardings(params, mesh)
+                params = sharding.to_device(
+                    sharding.shard_params(params, mesh, specs=specs), self.device
+                )
+        elif checkpoint is not None:
+            from .weights import load_checkpoint
+
+            # int8: each layer's slice is read whole and quantized, then
+            # cut to this rank's block
+            params = load_checkpoint(checkpoint, mcfg, ecfg, self.device, mesh, spec_fn,
+                                     quantize=quantize)
+        else:
             # int8: each layer's slice is quantized as it is drawn, so the
-            # full-precision model is never resident
+            # full-precision model is never resident; under a mesh each
+            # rank draws the whole stream and keeps its block
             gen = torch.Generator(device=self.device)
             gen.manual_seed(ecfg.seed)
             params = transformer.init_params(
-                mcfg, gen, self.dtype, self.device, quantize=quantize
+                mcfg, gen, self.dtype, self.device, quantize=quantize,
+                mesh=mesh, spec_fn=spec_fn,
             )
-        elif quantize and not any(
-            is_quantized(t)
-            for t in (*params["layers"].values(), params.get("lm_head"))
-        ):
-            params = quantize_params(params)
         self.params = params
         if num_pages is None:
             num_pages = 1 + ecfg.decode_batch_size * ecfg.max_pages_per_seq
         self.num_pages = num_pages
         self.alloc_pages = num_pages
-        self.cache = alloc_cache(mcfg, ecfg, num_pages, self.dtype, self.device)
+        layers = kv_heads = None
+        self._amax_group = None
+        if mesh is not None:
+            layers = mcfg.num_layers // self.pp
+            kv_heads = mcfg.num_kv_heads // mesh.shape["model"]
+            if ecfg.kv_quantize == "int8":
+                self._amax_group = mesh.group("model")
+        self.cache = alloc_cache(
+            mcfg, ecfg, num_pages, self.dtype, self.device, layers=layers, kv_heads=kv_heads,
+        )
+        self._handles: dict = {}
+        self._window_seq = 0
+        self.token_checks = 0
+        self._token_mismatch = None
+        self.ready_s = time.time() - t0
+        if mesh is not None:
+            # every rank built: a worker that failed makes this raise
+            with self._guard():
+                mesh.ctrl.all_reduce(torch.ones(1))
+
+    @staticmethod
+    def _mesh_devices(ecfg: EngineConfig, device) -> list:
+        """One device per rank of the mesh ``ecfg`` asks for: ``device``
+        as a list (its first ``dp*pp*sp*ep*tp``), ``"cuda"`` ->
+        ``cuda:0..W-1`` (raises when the machine has fewer cards, as the
+        reference's ``make_mesh``), ``"cpu"`` -> W CPU ranks."""
+        if isinstance(device, (list, tuple)):
+            devices = [torch.device(d) for d in device]
+            return devices[: int(np.prod(ecfg.resolved_mesh(len(devices))))]
+        d = torch.device(device)
+        if d.type == "cuda" and d.index is None:
+            world = int(np.prod(ecfg.resolved_mesh(max(torch.cuda.device_count(), 1))))
+            return [torch.device("cuda", i) for i in range(world)] if world > 1 else [d]
+        world = int(np.prod([x or 1 for x in (ecfg.dp, ecfg.pp, ecfg.sp, ecfg.ep, ecfg.tp)]))
+        if d.type == "cpu":
+            return [d] * world
+        if world > 1:
+            raise ValueError(
+                f"a mesh of {world} ranks needs one device per rank, not {d}: "
+                "pass device as a list"
+            )
+        return [d]
+
+    def _connect(self, mcfg, ecfg, params, num_pages, devices, checkpoint, rank, t0):
+        """Build this rank's mesh (rank 0 first starts the workers) and
+        resolve the engine config against it as the reference does."""
+        dp, pp, sp, ep, tp = ecfg.resolved_mesh(len(devices))
+        if dp > 1:
+            raise NotImplementedError(
+                "the mesh's data axis (dp > 1 inside a mesh) is not ported; run "
+                "data-parallel engine ranks instead (SUTRO_DP_*, engine/dphost.py)"
+            )
+        mesh = make_mesh(dp, ep, tp, devices, sp=sp, pp=pp)
+        sharding.check_tp_divides_kv_heads(mesh, mcfg.num_kv_heads)
+        if mcfg.num_heads % tp:
+            raise ValueError(f"TP axis size {tp} must divide num_heads {mcfg.num_heads}")
+        if mcfg.num_layers % pp:
+            raise ValueError(f"layers {mcfg.num_layers} not divisible by pipe size {pp}")
+        if mcfg.moe_experts and mcfg.moe_experts % ep:
+            raise ValueError(f"expert axis {ep} must divide num_experts {mcfg.moe_experts}")
+        if pp > 1 and ecfg.kv_quantize:
+            # as the reference: the pipeline decode carries bare pools
+            warnings.warn(
+                "kv_quantize is not supported under pipeline "
+                "parallelism; ignoring it for this pp mesh"
+            )
+            ecfg = dataclasses.replace(ecfg, kv_quantize=None)
+        if rank is None:
+            host = None
+            if params is not None:   # shipped to the workers on the host
+                host = sharding._map(params, lambda _, x: torch.as_tensor(x).detach().cpu())
+            self._pool = RankPool(dict(
+                mcfg=mcfg, ecfg=ecfg, params=host, num_pages=num_pages,
+                devices=[str(d) for d in devices], checkpoint=checkpoint, t0=t0,
+            ), mesh.size)
+            store, r = self._pool.store(), 0
+        else:   # a worker: the spawned ranks' file store, or torchrun's
+            from ..parallel.mesh import file_store
+
+            r = rank[0]
+            store = file_store(rank[1], mesh.size) if isinstance(rank[1], str) else rank[1]
+        mesh.rank = r
+        frac = shared_card_fraction(devices, mesh.device)
+        if frac is not None:
+            # ranks sharing a card: each caching allocator takes its share
+            # (rank 0's cap is lifted again by close)
+            torch.cuda.set_per_process_memory_fraction(frac, mesh.device)
+            self._capped = mesh.device
+        if self._pool is not None:
+            self._pool.attach(mesh)
+            self._pool.wait_up(store, mesh_timeout())
+        else:
+            store.set(f"up/{r}", "1")
+        with self._guard():
+            mesh.connect(store, r)
+        self.mesh = mesh
+        self.sp, self.pp = sp, pp
+        return ecfg
+
+    def _guard(self):
+        """Rank 0: a failed worker's broken connection -> RankFailure."""
+        return self._pool.guard() if self._pool is not None else contextlib.nullcontext()
+
+    def _entry_depth(self) -> int:
+        """Entry points this thread is inside (parallel/ranks.py)."""
+        return getattr(self._entry, "depth", 0)
+
+    @contextlib.contextmanager
+    def _entry_scope(self):
+        self._entry.depth = self._entry_depth() + 1
+        try:
+            yield
+        finally:
+            self._entry.depth -= 1
+
+    def close(self) -> None:
+        """Stop the worker ranks of a mesh runner (also done when the
+        runner is garbage-collected and at exit), and lift the cap that
+        sharing a card put on this process's allocator."""
+        if self._pool is not None:
+            self._pool.close()
+        if self._capped is not None:
+            torch.cuda.set_per_process_memory_fraction(1.0, self._capped)
+            self._capped = None
+
+    @entry()
+    def on_ranks(self, fn, *args):
+        """``fn(runner, *args)`` on every rank (``fn`` importable by its
+        module path); returns the list of results, one per rank. A
+        single-device runner returns ``[fn(self, *args)]``."""
+        got = fn(self, *args)
+        if self.mesh is None:
+            return [got]
+        return self.mesh.ctrl.gather_objects(got)
+
+    def mesh_report(self) -> list:
+        """Each rank's mesh figures (:func:`rank_report`)."""
+        return self.on_ranks(rank_report)
+
+    def _record_tokens(self, toks: torch.Tensor) -> None:
+        """On a mesh, every rank's sampled tokens are compared (each
+        rank samples its own copy of the same logits); differences are
+        counted on the device and read by ``token_mismatches``."""
+        if self.mesh is None:
+            return
+        got = self.mesh.world.all_gather(toks.to(torch.int32).reshape(1, -1), 0)
+        bad = (got != got[:1]).any().to(torch.int64)
+        self._token_mismatch = bad if self._token_mismatch is None else self._token_mismatch + bad
+        self.token_checks += 1
+
+    def token_mismatches(self) -> int:
+        """Sampling calls whose tokens differed between ranks."""
+        return 0 if self._token_mismatch is None else int(self._token_mismatch)
 
     # ------------------------------------------------------------------
     # host <-> device
@@ -183,7 +410,10 @@ class ModelRunner:
             "device_kind": (
                 torch.cuda.get_device_name(self.device) if cuda else "cpu"
             ),
-            "n_devices": torch.cuda.device_count() if cuda else 1,
+            "n_devices": (
+                self.mesh.size if self.mesh is not None
+                else torch.cuda.device_count() if cuda else 1
+            ),
             # int8 leaves and their scales count at their own widths
             "param_bytes": params_bytes(self.params),
             "n_params": int(sum(t.numel() for t in tensors(self.params))),
@@ -199,54 +429,123 @@ class ModelRunner:
     # tiered-KV page migration
     # ------------------------------------------------------------------
 
+    @entry()
     def read_pages(self, page_ids) -> dict:
         """Host copies of ``page_ids``'s K/V payloads, ``k``/``v``
         ``[L, n, PS, KD]``: float32 for a bfloat16 pool (exact; numpy has
         no bfloat16), int8 plus the per-token scales ``ks``/``vs`` ``[L,
         n, PS]`` for an int8 pool. Fetched synchronously, so the caller
-        may free the pages the moment this returns."""
+        may free the pages the moment this returns. On a mesh the ranks'
+        blocks are gathered into the full ``KVH*Dh`` rows of every layer
+        (the int8 scales are the same on every ``model`` rank)."""
         ids = torch.as_tensor(np.asarray(page_ids, np.int64), device=self.device)
         c = self.cache
         if c.quantized:
-            return {
-                "k": self._host(c.k_pages[:, ids]),
-                "v": self._host(c.v_pages[:, ids]),
-                "ks": self._host(c.k_scale[:, ids]),
-                "vs": self._host(c.v_scale[:, ids]),
-            }
-        return {
-            "k": self._host(c.k_pages[:, ids].float()),
-            "v": self._host(c.v_pages[:, ids].float()),
-        }
+            out = {"k": c.k_pages[:, ids], "v": c.v_pages[:, ids],
+                   "ks": c.k_scale[:, ids], "vs": c.v_scale[:, ids]}
+        else:
+            out = {"k": c.k_pages[:, ids].float(), "v": c.v_pages[:, ids].float()}
+        if self.mesh is not None:
+            model, pipe = self.mesh.group("model"), self.mesh.group("pipe")
+            for key, x in out.items():
+                if model is not None and key in ("k", "v"):
+                    x = model.all_gather(x, -1)
+                if pipe is not None:
+                    x = pipe.all_gather(x, 0)
+                out[key] = x
+        return {key: self._host(x) for key, x in out.items()}
 
+    def _block(self, x, key: str):
+        """This rank's block of a full-pool payload array."""
+        if self.mesh is None:
+            return x
+        x = np.asarray(x)
+        c = self.mesh.coords()
+        L = self.cache.k_pages.shape[0]
+        x = x[c["pipe"] * L : (c["pipe"] + 1) * L]
+        if key in ("k", "v"):
+            KD = self.cache.k_pages.shape[-1]
+            x = x[..., c["model"] * KD : (c["model"] + 1) * KD]
+        return x
+
+    @entry()
     def write_pages(self, page_ids, payload: dict) -> None:
         """Upload a payload into freshly allocated pages: a raw-dtype
         one from ``read_pages``, or the tier's int8 form (values plus
         per-token scales). An int8 payload promotes into a bfloat16 pool
-        by dequantizing on the way up, as in the reference."""
+        by dequantizing on the way up, as in the reference. On a mesh
+        every rank receives the whole payload and writes its block."""
         ids = torch.as_tensor(np.asarray(page_ids, np.int64), device=self.device)
         c = self.cache
         if c.quantized:
-            c.k_pages[:, ids] = self._up(payload["k"], torch.int8)
-            c.v_pages[:, ids] = self._up(payload["v"], torch.int8)
-            c.k_scale[:, ids] = self._up(payload["ks"], torch.float32)
-            c.v_scale[:, ids] = self._up(payload["vs"], torch.float32)
+            c.k_pages[:, ids] = self._up(self._block(payload["k"], "k"), torch.int8)
+            c.v_pages[:, ids] = self._up(self._block(payload["v"], "v"), torch.int8)
+            c.k_scale[:, ids] = self._up(self._block(payload["ks"], "ks"), torch.float32)
+            c.v_scale[:, ids] = self._up(self._block(payload["vs"], "vs"), torch.float32)
             return
         if np.asarray(payload["k"]).dtype == np.int8:
             payload = dequantize_payload(payload, np.float32)
         dt = c.k_pages.dtype
-        c.k_pages[:, ids] = self._up(payload["k"], dt)
-        c.v_pages[:, ids] = self._up(payload["v"], dt)
+        c.k_pages[:, ids] = self._up(self._block(payload["k"], "k"), dt)
+        c.v_pages[:, ids] = self._up(self._block(payload["v"], "v"), dt)
 
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------
 
+    def _forward(self, ids, positions, valid_len, head_index=None, **kw):
+        """The trunk on this runner's mesh: the plain forward (TP and EP
+        collectives inside, the ring over ``seq`` with no past), or the
+        pipeline schedule under ``pipe > 1``."""
+        if self.pp > 1:
+            from ..parallel import pipeline
+
+            if kw.get("paged_past") is None:
+                B = ids.shape[0]
+                return pipeline.pipeline_forward(
+                    self.mcfg, self.params, ids, positions, valid_len, self.mesh,
+                    n_microbatches=min(self.ecfg.pp_microbatches or self.pp, B),
+                    head_index=head_index,
+                )
+            if ids.shape[1] > 1:
+                raise NotImplementedError(
+                    "a forward over a paged past with T > 1 (suffix or chunked "
+                    "prefill, verify) is unsupported under pp, as in the reference"
+                )
+            return pipeline.pipeline_decode(
+                self.mcfg, self.params, ids, positions, valid_len, kw["paged_past"],
+                kw["past_len"], self.mesh, window_past=kw.get("window_past"),
+                head_index=head_index,
+            )
+        return transformer.forward(
+            self.mcfg, self.params, ids, positions, valid_len, head_index=head_index,
+            mesh=self.mesh, ring_mesh=self.mesh if self.sp > 1 else None, **kw,
+        )
+
+    def _write(self, k, v, table, start, valid_len) -> None:
+        write_kv(self.cache, k, v, table, start, valid_len, amax_group=self._amax_group)
+
     def _prefill(self, ids, valid_len, page_table, start, with_past: bool):
         """One padded chunk ``ids [B, T]``: trunk forward (over the paged
         past when ``with_past``), K/V written into the pages, and the
         logits at each row's last valid position ``[B, V]`` (the head
-        runs on those positions only, see transformer.forward)."""
+        runs on those positions only, see transformer.forward). Under sp
+        ``T`` is padded to a multiple of the ``seq`` size; under pp ``B``
+        to a multiple of the microbatches (padding rows write page 0)."""
+        n = ids.shape[0]
+        if not with_past and (self.sp > 1 or self.pp > 1):
+            T = -(-ids.shape[1] // self.sp) * self.sp
+            M = min(self.ecfg.pp_microbatches or self.pp, n)
+            B = -(-n // M) * M
+            if (B, T) != ids.shape:
+                pad = np.zeros((B, T), np.int32)
+                pad[:n, : ids.shape[1]] = ids
+                tables = np.zeros((B, np.asarray(page_table).shape[1]), np.int32)
+                tables[:n] = page_table
+                ids, page_table = pad, tables
+                valid_len = np.concatenate([np.asarray(valid_len, np.int32),
+                                            np.zeros(B - n, np.int32)])
+                start = np.zeros(B, np.int32)
         T = ids.shape[1]
         ids = self._up(ids, torch.int32)
         valid_len = self._up(valid_len, torch.int32)
@@ -259,12 +558,9 @@ class ModelRunner:
         kw = {}
         if with_past:
             kw = dict(paged_past=self._paged(table), past_len=start)
-        logits, _, (k, v) = transformer.forward(
-            self.mcfg, self.params, ids, positions, valid_len,
-            head_index=last, **kw,
-        )
-        write_kv(self.cache, k, v, table, start, valid_len)
-        return logits[:, 0]
+        logits, _, (k, v) = self._forward(ids, positions, valid_len, head_index=last, **kw)
+        self._write(k, v, table, start, valid_len)
+        return logits[:n, 0]
 
     def prefill(
         self, token_ids: np.ndarray, page_table: np.ndarray, start: int = 0,
@@ -277,12 +573,23 @@ class ModelRunner:
         if faults.ACTIVE is not None:
             faults.inject("runner.prefill")
         n = len(token_ids)
-        C = self.ecfg.prefill_chunk
-        if start > 0 and n <= C:
+        if start > 0 and (self.sp > 1 or self.pp > 1):
+            # the chunked paged path has no ring or pipeline schedule
+            raise ValueError("suffix prefill is unsupported under sp/pp")
+        if start > 0 and n <= self.ecfg.prefill_chunk:
             return self.prefill_batch_at(
                 [token_ids], page_table[None, :], [start]
             )[0]
-        if start > 0 or n > C:
+        return self._prefill_one(token_ids, page_table, start)
+
+    @entry()
+    def _prefill_one(self, token_ids, page_table, start: int) -> np.ndarray:
+        """``prefill``'s chunked path (a suffix, or more than
+        ``prefill_chunk`` tokens, on one ``seq`` and ``pipe`` rank) or its
+        one forward with no past."""
+        n = len(token_ids)
+        C = self.ecfg.prefill_chunk
+        if (start > 0 or n > C) and self.sp == 1 and self.pp == 1:
             table = page_table[None, :]
             for off in range(0, n, C):
                 seg = token_ids[off : off + C]
@@ -307,25 +614,32 @@ class ModelRunner:
             lens[i] = len(r)
         return ids, lens, np.asarray(page_tables[:n], np.int32)
 
+    @entry("runner.prefill")
     def prefill_batch(self, rows: list, page_tables: np.ndarray) -> np.ndarray:
         """Batched prefill with no past: N prompts in one forward ->
         last-position logits [N, V]. ``page_tables`` is [N, MP]."""
-        if faults.ACTIVE is not None:
-            faults.inject("runner.prefill")
         ids, lens, tables = self._pack(rows, page_tables)
         logits = self._prefill(
             ids, lens, tables, np.zeros((len(rows),), np.int32), with_past=False
         )
         return self._host(logits)
 
+    def _refuse_paged_chunk(self, *args, **kwargs) -> None:
+        """A forward of T > 1 over a paged past has no pipeline schedule
+        (as in the reference): refused before the call is sent."""
+        if self.pp > 1:
+            raise NotImplementedError(
+                "a forward over a paged past with T > 1 (suffix or chunked "
+                "prefill, verify) is unsupported under pp, as in the reference"
+            )
+
+    @entry("runner.prefill", check=_refuse_paged_chunk)
     def prefill_batch_at(
         self, rows: list, page_tables: np.ndarray, starts
     ) -> np.ndarray:
         """Batched SUFFIX prefill: row i begins at global position
         ``starts[i]`` and attends over pages that already hold its
         earlier positions."""
-        if faults.ACTIVE is not None:
-            faults.inject("runner.prefill")
         ids, lens, tables = self._pack(rows, page_tables)
         logits = self._prefill(
             ids, lens, tables, np.asarray(starts, np.int32), with_past=True
@@ -340,13 +654,12 @@ class ModelRunner:
         self, ids, positions, past_len, table, window_past=None, pfx=None,
     ):
         B = ids.shape[0]
-        return transformer.forward(
-            self.mcfg, self.params, ids, positions,
-            torch.ones((B,), dtype=torch.int32, device=self.device),
-            paged_past=self._paged(table),
-            past_len=past_len,
-            window_past=window_past,
-            pfx_groups=pfx,
+        kw = dict(paged_past=self._paged(table), past_len=past_len,
+                  window_past=window_past)
+        if pfx is not None:
+            kw["pfx_groups"] = pfx
+        return self._forward(
+            ids, positions, torch.ones((B,), dtype=torch.int32, device=self.device), **kw
         )
 
     def _sampling_args(self, temperature, top_p, top_k, B):
@@ -358,6 +671,7 @@ class ModelRunner:
             top_k=self._up(top_k, torch.int32),
         )
 
+    @entry("runner.decode")
     def decode_step(
         self,
         last_tokens: np.ndarray,     # [B] int32
@@ -374,8 +688,6 @@ class ModelRunner:
         #                   repetition [B])
         pfx=None,  # ((pages [Pp], pfx_len [B]), ...) split-prefix groups
     ) -> Tuple[np.ndarray, np.ndarray]:
-        if faults.ACTIVE is not None:
-            faults.inject("runner.decode")
         B = len(last_tokens)
         ids = self._up(np.asarray(last_tokens)[:, None], torch.int32)
         past = self._up(past_len, torch.int32)
@@ -383,10 +695,7 @@ class ModelRunner:
         logits, _, (k, v) = self._trunk_decode(
             ids, past[:, None], past, table, pfx=self._pfx_up(pfx)
         )
-        write_kv(
-            self.cache, k, v, table, past,
-            torch.ones((B,), dtype=torch.int32, device=self.device),
-        )
+        self._write(k, v, table, past, torch.ones((B,), dtype=torch.int32, device=self.device))
         step_logits = logits[:, 0]
         if penalties is not None:
             # pre-applied so the reported logprob is w.r.t. the
@@ -409,6 +718,7 @@ class ModelRunner:
             **self._sampling_args(temperature, top_p, top_k, B),
         )
         logp = cumulative_logprob(step_logits, tok)
+        self._record_tokens(tok)
         return self._host(tok), self._host(logp)
 
     # ------------------------------------------------------------------
@@ -435,8 +745,7 @@ class ModelRunner:
         single step, so a row's cumulative logprob does not depend on
         the path that committed each token."""
         B = last.shape[0]
-        L = self.mcfg.num_layers
-        KD = self.mcfg.num_kv_heads * self.mcfg.head_dim
+        L, KD = self.cache.k_pages.shape[0], self.cache.k_pages.shape[-1]  # this rank's
         # fused trailing axis, like the page pool (engine/kvcache.py);
         # under an int8 pool the window holds unquantized K/V in the
         # activation dtype, as in the reference (write_kv quantizes them
@@ -461,7 +770,9 @@ class ModelRunner:
             )
             toks.append(cur)
             logps.append(cumulative_logprob(step_logits, cur))
-        return torch.stack(toks), torch.stack(logps), wk, wv
+        toks = torch.stack(toks)
+        self._record_tokens(toks)
+        return toks, torch.stack(logps), wk, wv
 
     def decode_multi(
         self,
@@ -475,13 +786,15 @@ class ModelRunner:
         top_k: Optional[np.ndarray] = None,
         pfx=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Returns (tokens [steps, B], logprobs [steps, B])."""
+        """Returns (tokens [steps, B], logprobs [steps, B]): a window of
+        ``decode_multi_async``, fetched."""
         toks, logps = self.decode_multi_async(
             last_tokens, past_len, page_table, rng, temperature, top_p,
             steps, top_k=top_k, pfx=pfx,
         )
         return self._host(toks), self._host(logps)
 
+    @entry("runner.decode")
     def decode_multi_async(
         self,
         last_tokens,                 # [B] int32 (numpy OR device tensor)
@@ -498,8 +811,6 @@ class ModelRunner:
         waiting: callers chain the next window off ``toks[-1]`` before
         this window's results cross to the host. The window's K/V go
         into the pages once, after the last step."""
-        if faults.ACTIVE is not None:
-            faults.inject("runner.decode")
         B = past_len.shape[0]
         last = self._up(last_tokens, torch.int32)
         past = self._up(past_len, torch.int32)
@@ -508,10 +819,8 @@ class ModelRunner:
         toks, logps, wk, wv = self._window_scan(
             last, past, table, rng, sampling, steps, pfx=self._pfx_up(pfx)
         )
-        write_kv(
-            self.cache, wk, wv, table, past,
-            torch.full((B,), steps, dtype=torch.int32, device=self.device),
-        )
+        self._write(wk, wv, table, past,
+                    torch.full((B,), steps, dtype=torch.int32, device=self.device))
         return toks, logps
 
     def merge_last(self, prev_last, refresh_mask, refresh_vals):
@@ -547,17 +856,17 @@ class ModelRunner:
         positions = start[:, None] + torch.arange(
             K + 1, device=self.device, dtype=torch.int32
         )[None, :]
-        logits, _, (k, v) = transformer.forward(
-            self.mcfg, self.params, ids, positions, valid,
-            paged_past=self._paged(table), past_len=start,
+        logits, _, (k, v) = self._forward(
+            ids, positions, valid, paged_past=self._paged(table), past_len=start,
         )
-        write_kv(self.cache, k, v, table, start, valid)
+        self._write(k, v, table, start, valid)
         lg = logits.float()
         lse = torch.logsumexp(lg, dim=-1)                     # [B, C]
         plain = torch.argmax(lg, dim=-1)
         plain_lp = lg.gather(-1, plain[..., None])[..., 0] - lse
         return lg, lse, plain.to(torch.int32), plain_lp
 
+    @entry(check=_refuse_paged_chunk)
     def verify_greedy(
         self,
         last_tokens: np.ndarray,   # [B] int32
@@ -577,6 +886,7 @@ class ModelRunner:
         )
         return self._host(toks), self._host(logps)
 
+    @entry(check=_refuse_paged_chunk)
     def verify_candidates(
         self,
         last_tokens: np.ndarray,   # [B] int32
@@ -616,6 +926,7 @@ class ModelRunner:
     # speculative window decode (constrained rows)
     # ------------------------------------------------------------------
 
+    @entry("runner.decode")
     def decode_window(
         self,
         last_tokens: np.ndarray,     # [B] int32
@@ -636,9 +947,8 @@ class ModelRunner:
         prefix, so a rejected suffix costs nothing. The handle holds the
         window's K/V and device copies of ``past_len`` and the page
         table (the caller's arrays may be live views that change before
-        the commit)."""
-        if faults.ACTIVE is not None:
-            faults.inject("runner.decode")
+        the commit); the runner keeps them under the handle's number
+        (every rank its own block), the last few windows at most."""
         B = len(last_tokens)
         past = self._up(past_len, torch.int32)
         table = self._up(page_table, torch.int32)
@@ -648,18 +958,24 @@ class ModelRunner:
             pfx=self._pfx_up(pfx),
             allowed0=None if allowed0 is None else self._up(allowed0, torch.bool),
         )
-        return self._host(toks), self._host(logps), (wk, wv, past, table)
+        self._window_seq += 1
+        self._handles[self._window_seq] = (wk, wv, past, table)
+        for old in [k for k in self._handles if k <= self._window_seq - 8]:
+            del self._handles[old]
+        return self._host(toks), self._host(logps), WindowHandle(self._window_seq)
 
+    @entry()
     def commit_window(self, handle, accepted: np.ndarray) -> None:
         """Write each row's first ``accepted[b]`` (0 .. steps) window
         tokens' K/V into the page pool."""
-        wk, wv, past, table = handle
-        write_kv(self.cache, wk, wv, table, past, self._up(accepted, torch.int32))
+        wk, wv, past, table = self._handles.pop(handle.seq)
+        self._write(wk, wv, table, past, self._up(accepted, torch.int32))
 
     # ------------------------------------------------------------------
     # embeddings
     # ------------------------------------------------------------------
 
+    @entry("runner.embed")
     def embed_batch(self, rows: list) -> np.ndarray:
         """List of token-id rows -> ``[N, H]`` float32 embeddings on the
         host. The rows pad to one ``[N, T]`` batch (``T`` a power-of-two
@@ -667,8 +983,6 @@ class ModelRunner:
         every layer's attention is flash prefill; the embedding head
         pools each row over its valid tokens only (last or mean) and
         L2-normalizes. No KV page is written."""
-        if faults.ACTIVE is not None:
-            faults.inject("runner.embed")
         n = len(rows)
         maxlen = max((len(r) for r in rows), default=1)
         T = next_bucket(max(maxlen, 1), lo=16, hi=self.ecfg.max_context())
@@ -677,9 +991,15 @@ class ModelRunner:
         for i, r in enumerate(rows):
             ids[i, : len(r)] = r
             lens[i] = len(r)
+        if self.sp > 1 or self.pp > 1:   # the ring's T, the pipeline's B
+            T = -(-T // self.sp) * self.sp
+            M = min(self.ecfg.pp_microbatches or self.pp, n)
+            B = -(-n // M) * M
+            ids = np.pad(ids, ((0, B - n), (0, T - ids.shape[1])))
+            lens = np.pad(lens, (0, B - n))
         positions = torch.arange(T, device=self.device, dtype=torch.int32)[None, :]
-        emb, _, _ = transformer.forward(
-            self.mcfg, self.params, self._up(ids, torch.int32),
-            positions.expand(n, T), self._up(lens, torch.int32),
+        emb, _, _ = self._forward(
+            self._up(ids, torch.int32), positions.expand(ids.shape[0], T),
+            self._up(lens, torch.int32),
         )
-        return self._host(emb.float())
+        return self._host(emb[:n].float())

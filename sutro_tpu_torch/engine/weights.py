@@ -38,7 +38,7 @@ import torch
 
 from ..models.configs import ModelConfig
 from ..models import transformer
-from ..ops.quant import QUANT_LEAVES
+from ..ops.quant import QUANT_LEAVES, quantize_weight
 
 
 def params_from_numpy(
@@ -184,14 +184,30 @@ _OPS = {
 
 
 def load_checkpoint(
-    ckpt_dir: str, mcfg: ModelConfig, ecfg, device="cuda"
+    ckpt_dir: str, mcfg: ModelConfig, ecfg, device="cuda", mesh=None, spec_fn=None,
+    quantize: bool = False,
 ) -> Dict[str, Any]:
     """Load and remap an HF checkpoint for any supported family into
     the port's parameter dict on ``device`` in ``ecfg.param_dtype``
     (the dict ``params_from_numpy`` returns, which
     ``ModelRunner(params=...)`` takes). Raises KeyError on a missing
     tensor and ValueError on a misshapen one, before anything is
-    allocated on the device."""
+    allocated on the device.
+
+    With a ``mesh`` (parallel/mesh.py) every leaf is this rank's block
+    under ``spec_fn(path, shape)`` (default
+    ``parallel.sharding.leaf_spec``), and only that block of each source
+    tensor is read from its memory map.
+
+    With ``quantize`` the ``QUANT_LEAVES`` come back int8
+    (ops/quant.py), equal to ``quantize_params`` of the unquantized
+    load: each layer's slice is read whole and quantized, then cut to
+    the rank's block (a row-parallel leaf's per-channel scale reduces
+    over the axis that is split), so no rank holds more than one
+    layer's slice of a leaf in full precision."""
+    from ..parallel import sharding
+
+    spec_fn = spec_fn or sharding.leaf_spec
     idx = _ShardIndex(ckpt_dir)
     dtype = getattr(torch, ecfg.param_dtype)
     spec = transformer.param_spec(mcfg)
@@ -313,16 +329,71 @@ def load_checkpoint(
                     f"{tuple(want)} for model {mcfg.name}"
                 )
 
+    def fill(dst, shape, cut, sources) -> None:
+        """Block ``cut`` of a leaf of ``shape`` into ``dst``, from its
+        ``sources`` (each at its slot, a prefix of the leaf's index)."""
+        ranges = [range(*c.indices(n)) for c, n in zip(cut, shape)]
+        for slot, name, op, _ in sources:
+            # this block's slot, if any, and its block of the source
+            if any(i not in r for i, r in zip(slot, ranges)):
+                continue
+            here = tuple(i - r.start for i, r in zip(slot, ranges))
+            src = idx.get(name)
+            if mesh is None:   # raw words to the device, cast there
+                src = _OPS[op](src.to(device))
+            else:              # only the block leaves the memory map
+                src = _OPS[op](src)[cut[len(slot):]].to(device)
+            dst[here].copy_(src)
+            del src
+
+    def block(path, shape) -> tuple:
+        if mesh is None:
+            return (slice(None),) * len(shape)
+        return sharding.spec_slices(spec_fn(path, shape), shape, mesh)
+
+    def local(cut, shape) -> tuple:
+        return tuple(len(range(*c.indices(n))) for c, n in zip(cut, shape))
+
+    def quantized(path, shape, sources) -> Dict[str, torch.Tensor]:
+        """A QUANT_LEAVES leaf: each leading-axis slice (the whole leaf
+        if it is 2-D) read whole and quantized, then cut to the block."""
+        scale_shape = (*shape[:-2], 1, shape[-1])
+        qcut, scut = block((*path, "qw"), shape), block((*path, "scale"), scale_shape)
+        out = {"qw": torch.empty(local(qcut, shape), dtype=torch.int8, device=device),
+               "scale": torch.empty(local(scut, scale_shape), dtype=torch.float32,
+                                    device=device)}
+        if len(shape) == 2:
+            w = torch.empty(shape, dtype=dtype, device=device)
+            fill(w, shape, (slice(None),) * 2, sources)
+            q = quantize_weight(w)
+            out["qw"].copy_(q["qw"][qcut])
+            out["scale"].copy_(q["scale"][scut])
+            return out
+        qrows, srows = (range(*c[0].indices(shape[0])) for c in (qcut, scut))
+        for i in range(shape[0]):
+            if i not in qrows and i not in srows:
+                continue   # a layer of another pipeline stage
+            w = torch.empty((1, *shape[1:]), dtype=dtype, device=device)
+            fill(w, shape, (slice(i, i + 1),) + (slice(None),) * (len(shape) - 1), sources)
+            q = quantize_weight(w[0])
+            del w
+            if i in qrows:
+                out["qw"][i - qrows.start].copy_(q["qw"][qcut[1:]])
+            if i in srows:
+                out["scale"][i - srows.start].copy_(q["scale"][scut[1:]])
+        return out
+
     params: Dict[str, Any] = {"layers": {}}
     with torch.no_grad():
         for path, (shape, sources) in plan.items():
-            dst = torch.empty(shape, dtype=dtype, device=device)
-            for slot, name, op, _ in sources:
-                src = idx.get(name).to(device)  # raw words; cast on device
-                dst[slot].copy_(_OPS[op](src))
-                del src
+            if quantize and path[-1] in QUANT_LEAVES:
+                leaf = quantized(path, shape, sources)
+            else:
+                cut = block(path, shape)
+                leaf = torch.empty(local(cut, shape), dtype=dtype, device=device)
+                fill(leaf, shape, cut, sources)
             node = params
             for part in path[:-1]:
                 node = node[part]
-            node[path[-1]] = dst
+            node[path[-1]] = leaf
     return params

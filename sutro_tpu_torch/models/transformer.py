@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..ops.attention import chunk_attention
 from ..ops.moe import moe_mlp
 from ..ops.quant import (
-    QUANT_LEAVES, materialize, quantize_into, quantize_weight, quantized_empty,
+    QUANT_LEAVES, materialize, quantize_weight, quantized_empty,
 )
 from .configs import ModelConfig
 
@@ -109,6 +109,8 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
     quantize: bool = False,
+    mesh=None,
+    spec_fn=None,
 ) -> Params:
     """Random init in the :func:`param_spec` layout. Normal draws
     (scaled by ``fan_in ** -0.5``) come from ``generator``, which must
@@ -120,7 +122,18 @@ def init_params(
     (ops/quant.py), each layer's slice quantized as soon as it is drawn
     in ``dtype``, so the full-precision model is never resident; the
     draws and the result equal ``quantize_params`` of the unquantized
-    init."""
+    init.
+
+    With a ``mesh`` (parallel/mesh.py) each leaf comes back as this
+    rank's block under ``spec_fn(path, shape)`` (default
+    ``parallel.sharding.leaf_spec``): the rank draws the single engine's
+    whole stream in the single engine's order and keeps its block of
+    each slice (quantized before it is cut, so a row-parallel leaf's
+    per-channel scale is the full reduction's), so the blocks are bit
+    for bit slices of the single-device init."""
+    from ..parallel import sharding
+
+    spec_fn = spec_fn or sharding.leaf_spec
 
     def draw(shape, fan_in):
         return (
@@ -128,26 +141,61 @@ def init_params(
             * (fan_in ** -0.5)
         ).to(dtype)
 
-    def make(name, shape, init):
+    def cut(path, shape):
+        """(rows kept of the leading axis, the block of the rest)."""
+        if mesh is None:
+            return range(shape[0]), (slice(None),) * (len(shape) - 1)
+        sl = sharding.spec_slices(spec_fn(path, shape), shape, mesh)
+        return range(*sl[0].indices(shape[0])), sl[1:]
+
+    def local(path, shape):
+        if mesh is None:
+            return tuple(shape)
+        return sharding.local_shape(shape, spec_fn(path, shape), mesh)
+
+    def make(path, shape, init):
+        name = path[-1]
         kind, arg = init
         if kind == "const":
-            return torch.full(shape, arg, dtype=dtype, device=device)
-        if quantize and name in QUANT_LEAVES and len(shape) > 2:
-            out = quantized_empty(shape, device)
+            return torch.full(local(path, shape), arg, dtype=dtype, device=device)
+        rows, rest = cut(path, shape)
+        if quantize and name in QUANT_LEAVES:
+            scale_full = (*shape[:-2], 1, shape[-1])
+            if len(shape) > 2:
+                qrows, qrest = cut((*path, "qw"), shape)
+                srows, srest = cut((*path, "scale"), scale_full)
+                out = quantized_empty(local((*path, "qw"), shape), device)
+                for i in range(shape[0]):
+                    full = quantize_weight(draw(shape[1:], arg))   # the full slice
+                    if i in qrows:
+                        out["qw"][i - qrows.start] = full["qw"][qrest]
+                    if i in srows:
+                        out["scale"][i - srows.start] = full["scale"][srest]
+                return out
+            # a 2-D leaf (lm_head): quantized whole, then cut
+            w = torch.empty(shape, dtype=dtype, device=device)
             for i in range(shape[0]):
-                quantize_into(draw(shape[1:], arg),
-                              {"qw": out["qw"][i], "scale": out["scale"][i]})
-            return out
-        out = torch.empty(shape, dtype=dtype, device=device)
+                w[i] = draw(shape[1:], arg)
+            q = quantize_weight(w)
+            del w
+            if mesh is None:
+                return q
+            return {
+                k: q[k][sharding.spec_slices(spec_fn((*path, k), tuple(q[k].shape)),
+                                             tuple(q[k].shape), mesh)].contiguous()
+                for k in ("qw", "scale")
+            }
+        out = torch.empty(local(path, shape), dtype=dtype, device=device)
         for i in range(shape[0]):
-            out[i] = draw(shape[1:], arg)
-        if quantize and name in QUANT_LEAVES:   # a 2-D leaf (lm_head)
-            return quantize_weight(out)
+            x = draw(shape[1:], arg)
+            if i in rows:
+                out[i - rows.start] = x[rest]
         return out
 
     return {
         k: (
-            {n: make(n, *s) for n, s in v.items()} if k == "layers" else make(k, *v)
+            {n: make((k, n), *s) for n, s in v.items()} if k == "layers"
+            else make((k,), *v)
         )
         for k, v in param_spec(cfg).items()
     }
@@ -242,15 +290,38 @@ def apply_rope(
     return _rotate(x, *rope_tables(positions, theta, cfg, x.shape[-1] // 2))
 
 
-def _mlp(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def _ep_mesh(cfg: ModelConfig, mesh):
+    """The mesh when MoE layers run expert/tensor-parallel
+    (ops/moe_ep.py), else None."""
+    if mesh is None or not cfg.moe_experts:
+        return None
+    return mesh if mesh.shape["expert"] * mesh.shape["model"] > 1 else None
+
+
+def _tp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The all-reduce over ``model`` that ends a row-parallel product
+    (XLA inserts it in the reference from the sharding rules)."""
+    group = None if mesh is None else mesh.group("model")
+    return x if group is None else group.all_reduce(x)
+
+
+def _mlp(
+    cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor, mesh=None, ep_mesh=None,
+) -> torch.Tensor:
     if cfg.moe_experts:
-        return moe_mlp(
-            x, lp["router"], _w(lp, "we_gate", x.dtype), _w(lp, "we_up", x.dtype),
-            _w(lp, "we_down", x.dtype),
+        args = (x, lp["router"], _w(lp, "we_gate", x.dtype), _w(lp, "we_up", x.dtype),
+                _w(lp, "we_down", x.dtype))
+        kw = dict(
             top_k=cfg.moe_top_k, activation=cfg.activation,
             router_b=lp.get("router_b"), bias_gate=lp.get("we_gate_b"),
             bias_up=lp.get("we_up_b"), bias_down=lp.get("we_down_b"),
         )
+        if ep_mesh is not None:
+            # experts stay resident at 1/(ep*tp) a rank, one all-reduce
+            from ..ops.moe_ep import moe_mlp_ep
+
+            return moe_mlp_ep(*args, mesh=ep_mesh, **kw)
+        return moe_mlp(*args, **kw)
     gate = x @ _w(lp, "w_gate", x.dtype)
     up = x @ _w(lp, "w_up", x.dtype)
     if cfg.activation == "gelu":
@@ -261,7 +332,7 @@ def _mlp(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         up = up.float().clamp(-7.0, 7.0).to(x.dtype) + 1.0
     else:
         act = F.silu(gate.float()).to(x.dtype)
-    return (act * up) @ _w(lp, "w_down", x.dtype)
+    return _tp_reduce((act * up) @ _w(lp, "w_down", x.dtype), mesh)
 
 
 def layer_apply(
@@ -285,8 +356,17 @@ def layer_apply(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # rope_tables
     pfx_groups: Optional[tuple] = None,  # shared-prefix decode groups
     #                                      (ops/attention.py)
+    mesh=None,       # parallel/mesh.py: TP all-reduces over ``model``
+    ring_mesh=None,  # mesh with ``seq`` > 1: ring attention (no past)
+    ep_mesh=None,    # mesh for the expert-parallel MoE (ops/moe_ep.py)
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One decoder block. Returns ``(h, (k_chunk, v_chunk))``."""
+    """One decoder block. Shared by :func:`forward` and the pipeline
+    stages (parallel/pipeline.py). Returns ``(h, (k_chunk, v_chunk))``.
+
+    Under a mesh each rank holds its heads' and its FFN columns' blocks
+    (parallel/sharding.py), so head counts come from the tensors; the
+    attention output projection and the MLP end in an all-reduce over
+    ``model``, and ``bo`` and the post norms act after it."""
     B, T = h.shape[:2]
     resid = h
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps, cfg.norm_zero_centered)
@@ -295,9 +375,9 @@ def layer_apply(
     v = x @ _w(lp, "wv", x.dtype)
     if cfg.attn_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(B, T, -1, cfg.head_dim)
+    k = k.reshape(B, T, -1, cfg.head_dim)
+    v = v.reshape(B, T, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps, cfg.norm_zero_centered)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps, cfg.norm_zero_centered)
@@ -315,9 +395,9 @@ def layer_apply(
         page_table=page_table, past_len=past_len,
         window=window, sink=sink,
         win_k=wk_l, win_v=wv_l, win_len=win_len,
-        pfx_groups=pfx_groups,
+        pfx_groups=pfx_groups, ring_mesh=ring_mesh,
     )
-    attn = attn.reshape(B, T, cfg.q_size) @ _w(lp, "wo", h.dtype)
+    attn = _tp_reduce(attn.reshape(B, T, -1) @ _w(lp, "wo", h.dtype), mesh)
     if cfg.attn_bias:
         attn = attn + lp["bo"]
     if cfg.post_norms:
@@ -327,7 +407,7 @@ def layer_apply(
     h = resid + attn
     resid = h
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps, cfg.norm_zero_centered)
-    x = _mlp(cfg, lp, x)
+    x = _mlp(cfg, lp, x, mesh=mesh, ep_mesh=ep_mesh)
     if cfg.post_norms:
         x = rms_norm(x, lp["post_mlp_norm"], cfg.norm_eps, cfg.norm_zero_centered)
     h = resid + x
@@ -354,7 +434,8 @@ def embed_tokens(cfg: ModelConfig, params: Params, ids: torch.Tensor) -> torch.T
 
 
 def head_apply(
-    cfg: ModelConfig, params: Params, h: torch.Tensor, valid_len: torch.Tensor
+    cfg: ModelConfig, params: Params, h: torch.Tensor, valid_len: torch.Tensor,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """final norm + lm/embedding head. h: [B, T, H].
 
@@ -379,13 +460,87 @@ def head_apply(
         return emb, h
     lm_head = params.get("lm_head")
     if lm_head is None:
-        lm_head = params["embed"].T
-    return (h @ materialize(lm_head, h.dtype).to(h.dtype)).float(), h
+        # tied: the replicated embedding gives every rank whole logits
+        return (h @ params["embed"].T.to(h.dtype)).float(), h
+    logits = (h @ materialize(lm_head, h.dtype).to(h.dtype)).float()
+    group = None if mesh is None else mesh.group("model")
+    if group is not None:
+        # the vocabulary-parallel head: every rank gets the same bits,
+        # so each rank's row-seeded sampler draws the same tokens
+        logits = group.all_gather(logits, -1)
+    return logits, h
 
 
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+
+
+def layer_params(params: Params, i: int) -> Dict[str, Any]:
+    """Layer ``i`` (of the rank's stacked layers) without the L axis."""
+    return {
+        name: ({n: x[i] for n, x in t.items()} if isinstance(t, dict) else t[i])
+        for name, t in params["layers"].items()
+    }
+
+
+def run_layers(
+    cfg: ModelConfig,
+    params: Params,
+    h: torch.Tensor,
+    layers: range,                      # global layer indices to run
+    positions: torch.Tensor,
+    valid_len: torch.Tensor,
+    paged_past: Optional[Tuple[torch.Tensor, ...]] = None,
+    past_len: Optional[torch.Tensor] = None,
+    window_past: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
+    pfx_groups: Optional[tuple] = None,
+    *,
+    mesh=None,
+    ring_mesh=None,
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """The layer step over ``layers`` (the reference's scanned
+    ``layer_step``; a pipeline stage runs its own range). ``params``,
+    the page pools and the window buffers hold exactly these layers,
+    indexed from 0. Returns ``(h, ks, vs)``, one K/V per layer."""
+    windows = cfg.window_array()
+    thetas = rope_thetas(cfg)
+    k_pages = v_pages = k_scale = v_scale = page_table = None
+    if paged_past is not None and len(paged_past) == 5:
+        k_pages, v_pages, k_scale, v_scale, page_table = paged_past
+    elif paged_past is not None:
+        k_pages, v_pages, page_table = paged_past
+    ep_mesh = _ep_mesh(cfg, mesh)
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    tables: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
+    for i, layer in enumerate(layers):
+        theta = thetas[layer]
+        if theta not in tables:
+            tables[theta] = rope_tables(positions, theta, cfg, cfg.head_dim // 2)
+        kw: Dict[str, Any] = {}
+        if paged_past is not None:
+            kw = dict(
+                kp_l=k_pages[i], vp_l=v_pages[i],
+                page_table=page_table, past_len=past_len,
+                pfx_groups=pfx_groups,
+            )
+            if k_scale is not None:
+                kw.update(ks_l=k_scale[i], vs_l=v_scale[i])
+            if window_past is not None:
+                kw.update(
+                    wk_l=window_past[0][i], wv_l=window_past[1][i],
+                    win_len=int(window_past[2]),
+                )
+        h, (k, v) = layer_apply(
+            cfg, layer_params(params, i), h,
+            positions=positions, valid_len=valid_len,
+            window=windows[layer], theta=theta, rope=tables[theta],
+            mesh=mesh, ring_mesh=ring_mesh, ep_mesh=ep_mesh, **kw,
+        )
+        ks.append(k)
+        vs.append(v)
+    return h, ks, vs
 
 
 def forward(
@@ -407,6 +562,9 @@ def forward(
     # shared-prefix split decode: ((pages [Pp] int32, pfx_len [B] int32),
     # ...) on the device, one per group (ops/attention.py)
     pfx_groups: Optional[tuple] = None,
+    *,
+    mesh=None,       # parallel/mesh.py (TP and EP collectives)
+    ring_mesh=None,  # mesh with ``seq`` > 1: ring prefill (no past)
 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Run the trunk over a chunk.
 
@@ -418,51 +576,32 @@ def forward(
     head, so logits come back ``[B, 1, V]``. The head is position-wise,
     so these are the same logits as the full ``[B, T, V]`` at those
     positions; a long prefill chunk never materializes the full float32
-    logits (32768 tokens x 151,936 vocab would be ~20 GB)."""
+    logits (32768 tokens x 151,936 vocab would be ~20 GB).
+
+    With ``ring_mesh`` and no past each ``seq`` rank runs the layers on
+    its contiguous chunk of the sequence (ops/ring_attention.py); the
+    chunks' hidden states and K/V are gathered after the last layer."""
     h = embed_tokens(cfg, params, ids)
-    windows = cfg.window_array()
-    thetas = rope_thetas(cfg)
-    k_pages = v_pages = k_scale = v_scale = page_table = None
-    if paged_past is not None and len(paged_past) == 5:
-        k_pages, v_pages, k_scale, v_scale, page_table = paged_past
-    elif paged_past is not None:
-        k_pages, v_pages, page_table = paged_past
-    ks: List[torch.Tensor] = []
-    vs: List[torch.Tensor] = []
-    tables: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
-    for layer in range(cfg.num_layers):
-        theta = thetas[layer]
-        if theta not in tables:
-            tables[theta] = rope_tables(positions, theta, cfg, cfg.head_dim // 2)
-        lp = {
-            name: ({n: x[layer] for n, x in t.items()} if isinstance(t, dict)
-                   else t[layer])
-            for name, t in params["layers"].items()
-        }
-        kw: Dict[str, Any] = {}
-        if paged_past is not None:
-            kw = dict(
-                kp_l=k_pages[layer], vp_l=v_pages[layer],
-                page_table=page_table, past_len=past_len,
-                pfx_groups=pfx_groups,
-            )
-            if k_scale is not None:
-                kw.update(ks_l=k_scale[layer], vs_l=v_scale[layer])
-            if window_past is not None:
-                kw.update(
-                    wk_l=window_past[0][layer], wv_l=window_past[1][layer],
-                    win_len=int(window_past[2]),
-                )
-        h, (k, v) = layer_apply(
-            cfg, lp, h,
-            positions=positions, valid_len=valid_len,
-            window=windows[layer], theta=theta, rope=tables[theta], **kw,
-        )
-        ks.append(k)
-        vs.append(v)
+    if paged_past is not None:
+        ring_mesh = None
+    seq = None if ring_mesh is None else ring_mesh.group("seq")
+    pos = positions
+    if seq is not None:
+        from ..ops.ring_attention import seq_chunk
+
+        sl = seq_chunk(ring_mesh, ids.shape[1])
+        h, pos = h[:, sl], positions[:, sl]
+    h, ks, vs = run_layers(
+        cfg, params, h, range(cfg.num_layers), pos, valid_len, paged_past,
+        past_len, window_past, pfx_groups, mesh=mesh,
+        ring_mesh=None if seq is None else ring_mesh,
+    )
+    k_all, v_all = torch.stack(ks), torch.stack(vs)
+    if seq is not None:
+        h = seq.all_gather(h, 1)
+        k_all, v_all = seq.all_gather(k_all, 2), seq.all_gather(v_all, 2)
     if head_index is not None and cfg.head == "lm":
         rows = torch.arange(h.shape[0], device=h.device)
         h = h[rows, head_index.long()][:, None]
-    out, h = head_apply(cfg, params, h, valid_len)
-    return out, h, (torch.stack(ks), torch.stack(vs))
-
+    out, h = head_apply(cfg, params, h, valid_len, mesh)
+    return out, h, (k_all, v_all)

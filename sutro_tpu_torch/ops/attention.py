@@ -27,7 +27,10 @@ KV head n // G), causal masking within the chunk, past-length masking,
 per-layer sliding windows, and learnable attention sinks (an extra
 per-head softmax logit with no value row). Masked scores are -1e30.
 
-The reference's ring-attention (``ring_mesh``) path is not ported yet.
+With ``ring_mesh`` (a mesh whose ``seq`` axis is > 1) and no past,
+``T > 1`` takes the ring path (ops/ring_attention.py), as the reference
+does: the caller (models/transformer.py) holds this rank's contiguous
+chunk of the sequence, and the K/V chunks go around the ``seq`` ring.
 """
 
 from __future__ import annotations
@@ -75,11 +78,22 @@ def chunk_attention(
     # T == 1 only: T > 1 ignores them (the tables still hold the prefix
     # pages, so the gather computes the same function).
     pfx_groups: Optional[tuple] = None,
+    # a mesh with ``seq`` > 1: q/k/v/positions are this rank's chunk of
+    # a no-past prefill, ``valid_len`` counts the whole sequence's
+    ring_mesh=None,
 ) -> torch.Tensor:
     """Returns [B, T, NH, Dh]."""
     B, T, NH, Dh = q.shape
     KVH = k.shape[2]
     window = int(window or 0)
+    if ring_mesh is not None and past_k is None and past_k_pages is None:
+        from .ring_attention import ring_attention_local
+
+        kv_valid = positions.long() < valid_len.long()[:, None]
+        return ring_attention_local(
+            q, k, v, positions, positions, kv_valid, window, sink,
+            group=ring_mesh.group("seq"),
+        )
     if past_k_pages is not None:
         if T == 1:
             carry = {}

@@ -939,6 +939,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=DEFAULT_PORT)
     args = ap.parse_args(argv)
+    from .parallel.mesh import init_distributed
+
+    launch = init_distributed()
+    if launch is not None and launch[0] > 0:
+        # a torchrun launch's rank above 0: one rank of rank 0's mesh
+        # runners (EngineConfig.tp/ep/sp/pp), not a server
+        from .parallel.ranks import torchrun_worker
+
+        torchrun_worker()
+        return
     serve(args.host, args.port)
 
 

@@ -148,10 +148,13 @@ def test_runner_requires_cuda_by_default(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [("tp", 2), ("ep", 2), ("pp", 2)])
 def test_runner_refuses_unported_options(shared_params, field, value):
+    """Meshes run (tests/test_torch_mesh_engine.py); what stays unported
+    is the mesh's data axis beside them, which raises before any rank
+    process starts."""
     _, tparams = shared_params
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="data axis"):
         t_runner.ModelRunner(
-            MCFG, EngineConfig(**{**ENGINE, field: value}), tparams, device="cpu"
+            MCFG, EngineConfig(**{**ENGINE, field: value, "dp": 2}), tparams, device="cpu"
         )
 
 

@@ -27,7 +27,12 @@
 - no file of the port imports ``requests``, and no file but ``cli.py``
   imports ``click`` or ``tabulate``;
 - an engine with ``SUTRO_DP_WORLD=2`` in its environment builds (a
-  data-parallel rank), where the port once refused it.
+  data-parallel rank), where the port once refused it;
+- the mesh modules (``parallel/*``, ``ops/moe_ep.py``,
+  ``ops/ring_attention.py``) import with both blocked, a tp=2 runner of
+  two CPU rank processes prefills and decodes there, and no file of the
+  port but ``parallel/mesh.py`` (the collective helpers) imports
+  ``torch.distributed``.
 """
 
 import ast
@@ -107,7 +112,15 @@ MODULES = (
     "sutro_tpu_torch.fleet.router",
     "sutro_tpu_torch.engine.dphost",
     "sutro_tpu_torch.telemetry.distributed",
+    "sutro_tpu_torch.parallel.mesh",
+    "sutro_tpu_torch.parallel.sharding",
+    "sutro_tpu_torch.parallel.pipeline",
+    "sutro_tpu_torch.parallel.ranks",
+    "sutro_tpu_torch.ops.moe_ep",
+    "sutro_tpu_torch.ops.ring_attention",
 )
+# the one module of the port that imports torch.distributed
+COLLECTIVES = PORT / "parallel" / "mesh.py"
 
 
 def _port_files():
@@ -424,3 +437,54 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
     for line in out.splitlines():
         with pytest.raises(ValueError):
             json.loads(line)
+
+
+def _imports_distributed(path: Path) -> bool:
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import) and any(
+            a.name.startswith("torch.distributed") for a in node.names
+        ):
+            return True
+        if isinstance(node, ast.ImportFrom) and node.module and (
+            node.module.startswith("torch.distributed")
+            or (node.module == "torch" and any(a.name == "distributed" for a in node.names))
+        ):
+            return True
+    return False
+
+
+def test_only_the_collective_helpers_import_torch_distributed():
+    users = [p for p in _port_files() if _imports_distributed(p)]
+    assert users == [COLLECTIVES]
+
+
+def test_a_mesh_runs_with_jax_and_the_reference_blocked(tmp_path):
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from sutro_tpu_torch.engine.config import EngineConfig\n"
+        "from sutro_tpu_torch.engine.runner import ModelRunner\n"
+        "from sutro_tpu_torch.models.configs import MODEL_CONFIGS\n"
+        "if __name__ == '__main__':\n"
+        "    torch.set_num_threads(1)\n"
+        "    r = ModelRunner(MODEL_CONFIGS['tiny-moe'], EngineConfig(kv_page_size=8,\n"
+        "        max_pages_per_seq=4, decode_batch_size=1, max_model_len=32,\n"
+        "        param_dtype='float32', tp=2), device=['cpu', 'cpu'])\n"
+        "    table = np.array([[1, 2, 0, 0]], np.int32)\n"
+        "    r.prefill(np.arange(3, 12, dtype=np.int32), table[0])\n"
+        "    tok, _ = r.decode_step(np.array([5], np.int32), np.array([9], np.int32),\n"
+        "        table, 0, np.zeros(1, np.float32), np.ones(1, np.float32))\n"
+        "    rep = r.mesh_report()\n"
+        "    assert len(rep) == 2 and rep[1]['token_mismatches'] == 0, rep\n"
+        "    r.close()\n"
+        "    print('MESH_OK', r.mesh.backend, len(rep))\n"
+    )
+    script = tmp_path / "mesh_blocked.py"
+    script.write_text(code)
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "SUTRO_MESH_TIMEOUT": "60"}
+    out = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "MESH_OK gloo 2" in out.stdout

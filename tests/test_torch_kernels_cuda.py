@@ -41,6 +41,13 @@ to bf16 for the value product in the attention kernels.
   prefix carry over 16 shared pages, and the paged decode started from
   it with the sink, against the plain decode over the full table, with
   no window and with the 128-token window that cuts the prefix;
+- the shard shapes of a mesh (each rank's heads, KV heads, pool width
+  and expert block): paged decode with and without the carry at
+  Qwen3-30B-A3B's tp=2 heads (16 over 2) and at 8 over 1, flash prefill
+  at those heads over a 1,024-token template and a 4,096-token sequence
+  chunk, the KV write at ``KVH/tp*Dh`` = 256 and 128, and the grouped
+  GEMM at E=128 with F=384 (tp=2), at E=64 with F=768 (ep=2) and at
+  gpt-oss-120b's tp=2 width F=1,440 (a tail on N), gate/up and down;
 - the combinations each wrapper refuses raise.
 """
 
@@ -122,6 +129,23 @@ def test_flash_prefill_embedding_batch_with_padded_rows(dev, T):
         alone = fp.flash_prefill(q[b : b + 1, :n].contiguous(), k[b : b + 1, :n].contiguous(),
                                  v[b : b + 1, :n].contiguous()) if n else got[b : b + 1, :0]
         _close(got[b : b + 1, :n], alone)
+
+
+@pytest.mark.parametrize("NH,KVH", [(16, 2), (8, 1)])
+@pytest.mark.parametrize("T", [1024, 4096])
+def test_flash_prefill_at_shard_heads(dev, NH, KVH, T):
+    """A rank's heads under tp: Qwen3-30B-A3B's 32 over 4 at tp=2 and
+    tp=4, over a template and over one rank's sequence chunk."""
+    Dh, B = 128, 2 if T == 1024 else 1
+    g = torch.Generator(device=dev).manual_seed(T + NH)
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+    q = torch.randn((B, T, NH, Dh), **bf)
+    k = torch.randn((B, T, KVH, Dh), **bf)
+    v = torch.randn((B, T, KVH, Dh), **bf)
+    got = fp.flash_prefill(q, k, v)
+    want = fp.flash_prefill_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(got, want)
 
 
 def test_flash_prefill_refuses(dev):
@@ -251,6 +275,33 @@ def test_paged_decode_carry_matches_plain(dev, Dh, int8, window):
     kw = dict(window=window, sink=e["sink"], win_k=e["win_k"], win_v=e["win_v"], win_len=5)
     got = pd.paged_decode_attention(*_args(x), **kw, **carry, **scales)
     want = pd.paged_decode_plain(*_args(x), **kw, **carry, **scales)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("KVH", [2, 1])
+@pytest.mark.parametrize("carry", [False, True])
+def test_paged_decode_at_shard_heads(dev, KVH, carry):
+    """A rank's heads and pool under tp: 8 query heads a KV head, over
+    KVH 2 (Qwen3-30B-A3B at tp=2: 16 heads) and KVH 1 (tp=4), with the
+    window slots, and with a carry from shared pages."""
+    x, scales, e, past = _decode_case(dev, 128, 8, False, seed=31 + KVH + carry, KVH=KVH)
+    B, NH = x["q"].shape[:2]
+    kw_ = dict(win_k=e["win_k"], win_v=e["win_v"], win_len=5)
+    if carry:
+        g = torch.Generator(device=dev).manual_seed(5)
+        pfx = np.minimum(past // PS, 16).astype(np.int32)
+        cold = torch.as_tensor(pfx == 0, device=dev)
+        kw_.update(
+            pfx_cnt=torch.as_tensor(pfx, device=dev),
+            m0=torch.randn((B, NH), device=dev, generator=g).masked_fill(cold[:, None], -1e30),
+            l0=(torch.rand((B, NH), device=dev, generator=g) * 50 + 0.5).masked_fill(
+                cold[:, None], 0.0),
+            acc0=(torch.randn((B, NH, 128), device=dev, generator=g) * 10).masked_fill(
+                cold[:, None, None], 0.0),
+        )
+    got = pd.paged_decode_attention(*_args(x), **kw_)
+    want = pd.paged_decode_plain(*_args(x), **kw_)
     torch.cuda.synchronize()
     _close(got, want)
 
@@ -444,6 +495,15 @@ def _gmm_cases():
         "gpt_oss_down_M256_past_groups": (32, 2880, 2880, 256, 40),
         "gpt_oss_down_M4000": (32, 2880, 2880, 4000, 0),
         "gpt_oss_down_M16000": (32, 2880, 2880, 16000, 0),
+        # a rank's expert block on a mesh: Qwen3-30B-A3B at tp=2 (F/2)
+        # and at ep=2 (E/2), gpt-oss-120b at tp=2 (F = 1,440: a tail on N)
+        "qwen3_30b_tp2_gate_M512": (128, 2048, 384, 512, 0),
+        "qwen3_30b_tp2_down_M512": (128, 384, 2048, 512, 0),
+        "qwen3_30b_tp2_gate_M16384": (128, 2048, 384, 16384, 0),
+        "qwen3_30b_ep2_gate_M512_past_groups": (64, 2048, 768, 400, 112),
+        "qwen3_30b_ep2_down_M16384": (64, 768, 2048, 16384, 0),
+        "gpt_oss_120b_tp2_gate_M256": (128, 2880, 1440, 256, 0),
+        "gpt_oss_120b_tp2_down_M4000": (128, 1440, 2880, 4000, 0),
     }
 
 
@@ -501,6 +561,11 @@ def _kv_cases():
         # of 1 < a < steps, and of steps, in one call
         "commit_mixed_accepted": (48, 512, 64, 4, "ragged64",
                                   [0, 3, steps, 1, 7, 0, 2, steps] * 8, steps, None, None),
+        # a rank's block of the pool on a mesh: Qwen3-30B-A3B's KVH/tp*Dh
+        # at tp=2 (256) and tp=4 (128)
+        "window_qwen3_30b_tp2": (48, 256, 64, 4, "ragged64", [steps] * 64, steps, None, None),
+        "prefill_qwen3_30b_tp4": (48, 128, 64, 24, [0, 0, 1024, 0], [500, 37, 256, 499], 500,
+                                  None, None),
     }
 
 
