@@ -254,15 +254,20 @@ of serve 1's first 8 layers beside the full one for serves 7, 9 and 10.
    2's, and so must one decode step of those rows over the pages that
    prefill wrote: split over their template, over the full table, and
    through the plain versions (``rank_decode_check``); serve 2's first
-   64 templated rows, greedy, 32 new tokens (``prefix_split``), must
+   32 templated rows, greedy, 16 new tokens (``prefix_split``), must
    each come back once at their length, every kernel of serve 2's path
    launch on both ranks and both ranks sample the same tokens in every
    call; the rows token-equal to serve 2's greedy rows are counted. A
    ``LocalEngine`` job with the mesh runner resident must succeed. Then
-   three phases on 4 layers of the same widths, each against one
+   four phases on 4 layers of the same widths, each against one
    device replaying its expert choices, prefill logits within REL_L2:
-   ep=2 (64 experts a rank), sp=2 (a ring prefill of 8,192 tokens) and
-   pp=2 (two stages, two microbatches), each with one fused window. A
+   ep=2 (64 experts a rank), sp=2 (a ring prefill of 8,192 tokens),
+   pp=2 (two stages, two microbatches), each with one fused window, and
+   dp=2 x ep=2 on four rank processes (``cuda:(r % device_count)``, each
+   capped at its share of the card): the MoE layers split the 4 rows
+   over ``data`` and a prefill of 3 of them replicates its tokens; the
+   grouped GEMM, flash prefill, paged decode and page write must launch
+   on all four ranks and every rank sample the same tokens. A
    ``serve11 summary`` line follows serve 10's;
 14. serve 3, after serve 11's ranks are stopped: ``qwen3-32b`` at full
    width and depth with int8 weights and int8 KV pages: 88 requests of
@@ -5155,6 +5160,10 @@ def dp_summary(out: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_TP = 2
+# serve 11's greedy job: rows and new tokens (reduced from 64 x 32 so the
+# whole smoke, with the dp_ep phase, stays under 1,000 s of command)
+MESH_ROWS = 32
+MESH_NEW = 16
 # the depth of serve 11's ep/sp/pp phases (qwen3-30b-a3b's widths)
 PHASE_LAYERS = 4
 # the depth of serves 4, 7, 9 and 10 (their checks read routing,
@@ -5245,9 +5254,10 @@ def install_routes(runner, routes, B: int, T: int) -> None:
     """Replay, on this rank, the expert choices a single device's
     prefill of the same ``[B, T]`` batch recorded (``routes``: one
     ``[B*T, K]`` array a layer), in the order this rank's schedule calls
-    the router: every layer over the whole batch (tp, ep), this rank's
-    chunk of the sequence (sp), or its stage's layers microbatch by
-    microbatch (pp). ``remove_routes`` ends it."""
+    the router: every layer over the whole batch (tp, ep), this data
+    rank's rows (dp with ep or tp, when dp divides B), this rank's chunk
+    of the sequence (sp), or its stage's layers microbatch by microbatch
+    (pp). ``remove_routes`` ends it."""
     import torch
 
     per = [np.asarray(r).reshape(B, T, -1) for r in routes]
@@ -5264,7 +5274,12 @@ def install_routes(runner, routes, B: int, T: int) -> None:
         sl = seq_chunk(runner.mesh, T)
         order = [p[:, sl] for p in per]
     else:
-        order = per
+        # the MoE layers route only this data rank's rows when ``data``
+        # divides the batch (ops/moe_ep.py), every row otherwise
+        dp, order = runner.mesh.shape["data"], per
+        if dp > 1 and B % dp == 0 and runner.mesh.shape["expert"] * runner.mesh.shape["model"] > 1:
+            d = runner.mesh.coords()["data"]
+            order = [p[d * B // dp:(d + 1) * B // dp] for p in per]
     replay = [torch.as_tensor(np.ascontiguousarray(x.reshape(-1, x.shape[-1]))).to(runner.device)
               for x in order]
     flips = []
@@ -5293,8 +5308,8 @@ def _pack_table(rows, room: int, page_size: int, max_pages: int) -> np.ndarray:
     return make_page_table(pages, max_pages)
 
 
-def mesh_reference(torch, runner, prompts, results=None, greedy=(), n_rows: int = 64,
-                   n_new: int = 32, seed: int = 0) -> dict:
+def mesh_reference(torch, runner, prompts, results=None, greedy=(), n_rows: int = MESH_ROWS,
+                   n_new: int = MESH_NEW, seed: int = 0) -> dict:
     """What serve 11 is held against, taken on serve 2's single-device
     runner: the kernel run's prefill logits of 4 rows with its expert
     choices (``routing``), one decode step of those rows over the pages
@@ -5386,13 +5401,15 @@ def rank_decode_check(runner, step: dict, routes, want) -> dict:
 
 
 def mesh_phase(torch, name: str, axes: dict, mcfg, devices, rows, seed: int = 0,
-               steps: int = 8) -> dict:
+               steps: int = 8, odd_rows=None, need=()) -> dict:
     """One short phase of serve 11 on another axis: ``rows`` prefilled
     and one fused window decoded on one device, then on a mesh of
     ``axes`` over ``devices``, each rank replaying the single device's
-    expert choices. The prefill logits must agree within REL_L2 and every
-    rank sample the same tokens; the window's tokens against the single
-    device's are reported."""
+    expert choices; then, with ``odd_rows``, a prefill of those rows the
+    same way. The prefill logits must agree within REL_L2, every rank
+    sample the same tokens, and each kernel named in ``need`` launch on
+    every rank; the window's tokens against the single device's and its
+    collectives are reported."""
     import dataclasses
     import gc
 
@@ -5401,7 +5418,7 @@ def mesh_phase(torch, name: str, axes: dict, mcfg, devices, rows, seed: int = 0,
     from sutro_tpu_torch.engine.runner import ModelRunner
 
     PS = 64
-    MP = max(pages_needed(len(r) + steps + 1, PS) for r in rows)
+    MP = max(pages_needed(len(r) + steps + 1, PS) for r in (*rows, *(odd_rows or ())))
     table = _pack_table(rows, steps + 1, PS, MP)
     ecfg = EngineConfig(kv_page_size=PS, max_pages_per_seq=MP, decode_batch_size=len(rows),
                         max_model_len=MP * PS, decode_multi_step=steps, seed=seed)
@@ -5414,10 +5431,17 @@ def mesh_phase(torch, name: str, axes: dict, mcfg, devices, rows, seed: int = 0,
             table, 11, np.zeros(B, np.float32), np.ones(B, np.float32), steps)
     want_toks, _ = single.decode_multi(*args)
     routes = [r.cpu().numpy() for r in routes]
+    odd_routes = []
+    if odd_rows:
+        odd_table = _pack_table(odd_rows, 0, PS, MP)
+        with routing(record=odd_routes):
+            want_odd = single.prefill_batch(odd_rows, odd_table)
+        odd_routes = [r.cpu().numpy() for r in odd_routes]
     del single
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()   # rank 0's peak is this phase's
     t0 = time.monotonic()
     mesh = ModelRunner(mcfg, dataclasses.replace(ecfg, **axes), device=devices)
     build_s = time.monotonic() - t0
@@ -5426,7 +5450,14 @@ def mesh_phase(torch, name: str, axes: dict, mcfg, devices, rows, seed: int = 0,
         mesh.on_ranks(install_routes, routes, B, T)
         got = mesh.prefill_batch(rows, table)
         flips = sum(mesh.on_ranks(remove_routes))
+        before = mesh.mesh_report()
         toks, _ = mesh.decode_multi(*args)
+        after = mesh.mesh_report()
+        if odd_rows:
+            mesh.on_ranks(install_routes, odd_routes, len(odd_rows),
+                          max(len(r) for r in odd_rows))
+            got_odd = mesh.prefill_batch(odd_rows, odd_table)
+            flips += sum(mesh.on_ranks(remove_routes))
         launches = mesh.on_ranks(rank_launches)
         report = mesh.mesh_report()
     finally:
@@ -5435,18 +5466,32 @@ def mesh_phase(torch, name: str, axes: dict, mcfg, devices, rows, seed: int = 0,
     out = dict(axes=axes, rows=B, tokens=T, layers=mcfg.num_layers, build_s=build_s,
                logits_rel_l2=rel, flips=flips,
                window_tokens_equal=float((toks == want_toks).mean()),
-               launches_by_rank=launches,
+               window_collectives=[a["collectives"] - b["collectives"]
+                                   for a, b in zip(after, before)],
+               window_collective_host_ms=[1e3 * (a["collective_s"] - b["collective_s"])
+                                          for a, b in zip(after, before)],
+               launches_by_rank=launches, peak_gb=[r["peak_bytes"] / 1e9 for r in report],
                token_mismatches=sum(r["token_mismatches"] for r in report))
+    if odd_rows:
+        out["odd_rows"] = len(odd_rows)
+        out["odd_logits_rel_l2"] = rel_l2(got_odd, want_odd)
     print(f"serve11 {name}: " + json.dumps(out), flush=True)
     if not (np.isfinite(got).all() and rel < REL_L2):
         raise AssertionError(f"serve11 {name}: prefill logits disagree with one device: {rel}")
+    if odd_rows and not (np.isfinite(got_odd).all() and out["odd_logits_rel_l2"] < REL_L2):
+        raise AssertionError(f"serve11 {name}: the odd batch's prefill logits disagree with "
+                             f"one device: {out['odd_logits_rel_l2']}")
     if out["token_mismatches"]:
         raise AssertionError(f"serve11 {name}: the ranks sampled different tokens")
+    idle = {k: [r for r, by in enumerate(launches) if not by[k]] for k in need}
+    if any(idle.values()):
+        raise AssertionError(f"serve11 {name}: kernels not launched on every rank: {idle}")
     return out
 
 
 def serve_mesh(torch, kernels, card: str, ref: dict, *, model="qwen3-30b-a3b", devices=None,
-               geometry=None, n_rows: int = 64, n_new: int = 32, job_rows: int = 16,
+               geometry=None, n_rows: int = MESH_ROWS, n_new: int = MESH_NEW,
+               job_rows: int = 16,
                phase_layers: int = PHASE_LAYERS, sp_tokens: int = 8192, seed: int = 0) -> dict:
     """Serve 11: ``model`` at full width and depth on a tp=2 mesh of two
     rank processes (this process is rank 0; the runner starts rank 1),
@@ -5468,10 +5513,12 @@ def serve_mesh(torch, kernels, card: str, ref: dict, *, model="qwen3-30b-a3b", d
       are counted, not held;
     - a ``LocalEngine`` job of ``job_rows`` rows with the mesh runner
       resident must end SUCCEEDED;
-    - then the ep, sp and pp phases (``mesh_phase``) on ``phase_layers``
-      layers of the same widths: ep=2 (64 experts a rank), sp=2 (a ring
-      prefill of ``sp_tokens`` tokens), pp=2 (two stages, two
-      microbatches).
+    - then the ep, sp, pp and dp_ep phases (``mesh_phase``) on
+      ``phase_layers`` layers of the same widths: ep=2 (64 experts a
+      rank), sp=2 (a ring prefill of ``sp_tokens`` tokens), pp=2 (two
+      stages, two microbatches), and dp=2 x ep=2 on four ranks (the
+      rows split over ``data`` in the MoE layers, then an odd batch of 3
+      rows that replicates its tokens).
 
     Returns what ``mesh_summary`` prints."""
     from sutro_tpu_torch.engine.stepprofile import ENGINES
@@ -5504,11 +5551,20 @@ def _serve_mesh(torch, kernels, card, ref, mcfg, fields, devices, n_rows, n_new,
     small = dataclasses.replace(mcfg, name=f"{model}-l{phase_layers}", num_layers=phase_layers)
     rows4 = [np.asarray(p) for p in ref["prompts"][:4]]
     long_row = [np.tile(ref["prompts"][0], -(-sp_tokens // len(ref["prompts"][0])))[:sp_tokens]]
+    if str(devices[0]).startswith("cuda"):
+        n = torch.cuda.device_count()
+        devices4 = [f"cuda:{r % n}" for r in range(4)]
+    else:
+        devices4 = [devices[0]] * 4
+    need = ("grouped_matmul", "flash_prefill", "paged_decode", "kv_write")
     out["phases"] = {
         "ep": mesh_phase(torch, "ep", {"ep": 2}, small, devices, rows4, seed),
         "sp": mesh_phase(torch, "sp", {"sp": 2}, small, devices, long_row, seed),
         "pp": mesh_phase(torch, "pp", {"pp": 2, "pp_microbatches": 2}, small, devices, rows4,
                          seed),
+        "dp_ep": mesh_phase(torch, "dp_ep", {"dp": 2, "ep": 2, "tp": 1}, small, devices4,
+                            rows4, seed, odd_rows=rows4[:3],
+                            need=need if torch.cuda.is_available() else ()),
     }
     out["serve_s"] = time.monotonic() - t_start
     print("serve11: " + json.dumps({k: v for k, v in out.items() if k != "phases"}), flush=True)
@@ -5682,6 +5738,7 @@ def mesh_summary(out: dict) -> dict:
         token_equal_to_serve2=out["token_equal_to_serve2"],
         phases_rel_l2={k: v["logits_rel_l2"] for k, v in out["phases"].items()},
         phases_flips={k: v["flips"] for k, v in out["phases"].items()},
+        dp_ep_odd_rel_l2=out["phases"]["dp_ep"]["odd_logits_rel_l2"],
         serve_s=out["serve_s"],
     )
 

@@ -163,7 +163,8 @@ def _token_bytes_of(tok):
     if token_bytes is not None:
         try:
             token_bytes(0)
-        except Exception:  # noqa: BLE001 — any raise means no byte view
+        except Exception:  # graftlint: disable=silent-except
+            # any raise means no byte view
             token_bytes = None
     return token_bytes
 
@@ -629,7 +630,7 @@ class LocalEngine:
             return {"status": status.value}
         # monotonic one-way flag, polled by the worker at pop/row
         # boundaries; it never un-sets while a job is live
-        self._cancel.add(job_id)
+        self._cancel.add(job_id)  # graftlint: disable=shared-state-unlocked
         if status == JobStatus.QUEUED:
             self.jobs.set_status(job_id, JobStatus.CANCELLED)
             return {"status": JobStatus.CANCELLED.value}
@@ -1082,7 +1083,8 @@ class LocalEngine:
             return 0
         try:
             return store.peek(ids)
-        except Exception:  # noqa: BLE001 — a probe never fails a submit
+        except Exception:  # graftlint: disable=silent-except
+            # a probe never fails a submit
             return 0
 
     def close(self, timeout: float = 10.0) -> bool:
@@ -1837,10 +1839,10 @@ class LocalEngine:
         todo.sort(key=lambda i: len(token_rows[i]))
         jm.progress(len(results))
         dp = DPWorld.from_env()
-        # one device per engine; under dp the merged progress stream
-        # carries every rank's throughput, so per-chip rates divide by
-        # the ranks
-        n_chips = dp.world if dp is not None else 1
+        # the runner's mesh ranks (one device each) times the dp ranks:
+        # under dp the merged progress stream carries every rank's
+        # throughput
+        n_chips = mesh_world(runner) * (dp.world if dp is not None else 1)
         row_progress = BatchedProgress(jm, every_rows=bs)
         tel_on = telemetry.enabled()
         jtel = telemetry.job(job_id) if tel_on else None
@@ -2001,6 +2003,14 @@ class LocalEngine:
         return None
 
 
+def mesh_world(runner) -> int:
+    """The devices ``runner`` runs on: its mesh's ranks, one device each
+    (the reference's ``jax.device_count()`` under its default mesh over
+    every device), or 1."""
+    mesh = getattr(runner, "mesh", None)
+    return mesh.size if mesh is not None else 1
+
+
 class _GenSession:
     """Engine-side context for ONE generation job inside a (possibly
     co-batched) batcher session: prompt build, resume filter, result
@@ -2124,11 +2134,13 @@ class _GenSession:
                 self.jtel.add("rows_quarantined")
                 telemetry.ROWS_TOTAL.inc(1.0, "quarantined")
 
-        # one device per engine (meshes are not ported); under
-        # engine-level DP the merged progress stream carries every
-        # rank's throughput, so per-chip numbers divide by the ranks
+        # the resident runner's mesh ranks (one device each) times the
+        # dp ranks: under engine-level DP the merged progress stream
+        # carries every rank's throughput
         dp = DPWorld.from_env()
-        self.n_chips = 1 * (dp.world if dp else 1)
+        with eng._lock:
+            cached = eng._runner_cache.get(engine_key)
+        self.n_chips = mesh_world(cached[0] if cached else None) * (dp.world if dp else 1)
         self._dp = dp is not None
         self.tput = Throughput(self.n_chips)
         self.rows_rate = Throughput(1)

@@ -67,21 +67,28 @@ def _start(path: str, device: Any) -> Any:
     return prof
 
 
-def _stop(prof: Any, path: str) -> None:
-    """Stop the profiler and export its trace: to a temporary name, then
-    renamed, so ``trace.json`` appears whole or not at all."""
+def _stop(prof: Any, path: str) -> tuple:
+    """Stop the profiler and export its trace to a temporary name
+    (under ``_trace_lock``: no other trace starts meanwhile); returns
+    what :func:`_publish` needs."""
     prof.stop()
     out = os.path.join(path, TRACE_FILE)
     t0 = time.perf_counter()
     prof.export_chrome_trace(out + ".tmp")
+    return path, out, t0
+
+
+def _publish(path: str, out: str, t0: float) -> None:
+    """Rename the exported trace, so ``trace.json`` appears whole or not
+    at all, and record it (outside ``_trace_lock`` but the record)."""
     os.replace(out + ".tmp", out)
     export_s = time.perf_counter() - t0
-    _trace_state["last"] = {
-        "path": path, "file": out, "bytes": os.path.getsize(out),
-        "export_s": export_s,
-    }
+    last = {"path": path, "file": out, "bytes": os.path.getsize(out),
+            "export_s": export_s}
+    with _trace_lock:
+        _trace_state["last"] = last
     logger.info("device trace %s: %d bytes exported in %.2fs", out,
-                _trace_state["last"]["bytes"], export_s)
+                last["bytes"], export_s)
 
 
 @contextlib.contextmanager
@@ -114,17 +121,23 @@ def job_trace(
     try:
         yield
     finally:
+        exported = None
         with _trace_lock:
             _trace_state["count"] -= 1
             if _trace_state["count"] == 0:
                 prof, path = _trace_state["prof"], _trace_state["path"]
                 _trace_state["prof"] = _trace_state["path"] = None
                 try:
-                    _stop(prof, path)
+                    exported = _stop(prof, path)
                 except Exception:  # noqa: BLE001 — a profiling teardown
                     # must never fail the job
                     logger.warning("device trace stop failed",
                                    exc_info=True)
+        if exported is not None:
+            try:
+                _publish(*exported)
+            except OSError:
+                logger.warning("device trace rename failed", exc_info=True)
 
 
 class StepTimer:

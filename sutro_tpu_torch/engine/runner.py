@@ -37,7 +37,7 @@ reference): weight-only int8 projections (ops/quant.py, dequantized
 before each product) and int8 KV pages with per-token scales
 (engine/kvcache.py), read by the paged-decode kernel's int8 option.
 
-Device meshes (``EngineConfig.tp/ep/sp/pp`` > 1, parallel/): ``device``
+Device meshes (``EngineConfig.dp/tp/ep/sp/pp`` > 1, parallel/): ``device``
 is then a list of devices, one rank per entry (a single ``"cuda"`` means
 ``cuda:0..W-1``, ``"cpu"`` means W CPU ranks). This runner is rank 0 and
 starts the other ranks itself (parallel/ranks.py); each holds its block
@@ -48,9 +48,12 @@ sp > 1 prefills without a past through the ring (ops/ring_attention.py);
 pp > 1 prefills by GPipe and decodes stage by stage
 (parallel/pipeline.py). As in the reference, int8 KV is ignored under pp
 (with a warning) and a suffix or chunked prefill over a paged past is
-refused under sp/pp. The mesh's ``data`` axis is not ported: ``dp > 1``
-inside a mesh raises (engine-level data parallelism is
-engine/dphost.py).
+refused under sp/pp. The mesh's ``data`` axis partitions as the
+reference's does: weights and pool replicated over it, the runner's
+batch unsplit, and only the MoE layers' tokens split over it
+(ops/moe_ep.py); every rank of every data group samples the same tokens
+(``token_mismatches``). Engine-level data parallelism, one engine a
+rank, is engine/dphost.py.
 
 The reference's ``kv_chunk`` (TPU DMA chunking) has no counterpart, so
 ``alloc_pages == num_pages``.
@@ -256,11 +259,6 @@ class ModelRunner:
         """Build this rank's mesh (rank 0 first starts the workers) and
         resolve the engine config against it as the reference does."""
         dp, pp, sp, ep, tp = ecfg.resolved_mesh(len(devices))
-        if dp > 1:
-            raise NotImplementedError(
-                "the mesh's data axis (dp > 1 inside a mesh) is not ported; run "
-                "data-parallel engine ranks instead (SUTRO_DP_*, engine/dphost.py)"
-            )
         mesh = make_mesh(dp, ep, tp, devices, sp=sp, pp=pp)
         sharding.check_tp_divides_kv_heads(mesh, mcfg.num_kv_heads)
         if mcfg.num_heads % tp:

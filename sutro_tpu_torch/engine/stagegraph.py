@@ -625,8 +625,8 @@ class StageGraphRunner:
         if durable:
             try:
                 self.eng.jobs.update(self.job_id, stages_state=roll)
-            except Exception:  # noqa: BLE001 — progress is advisory; the
-                pass  # run must not die on it
+            except Exception:  # graftlint: disable=silent-except
+                pass  # progress is advisory; the run must not die on it
 
     # -- streaming handoff ---------------------------------------------
 

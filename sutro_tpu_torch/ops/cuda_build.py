@@ -87,12 +87,17 @@ class CudaKernel:
         return BUILD_DIR / f"lib{self._source}-{digest}.so"
 
     def function(self):
-        """The loaded C entry point, built on first use."""
+        """The loaded C entry point, built on first use. The build runs
+        outside the lock: it is idempotent (each compile writes its own
+        temporary file and renames it into place), so two threads that
+        both find the library missing both compile and one rename wins;
+        the lock only makes the load happen once."""
         if self._fn is None:
+            path = self.library_path()
+            build([self])
             with _lock:
                 if self._fn is None:
-                    build([self])
-                    lib = ctypes.CDLL(str(self.library_path()))
+                    lib = ctypes.CDLL(str(path))
                     fn = getattr(lib, self.symbol)
                     fn.argtypes = self.argtypes
                     fn.restype = ctypes.c_int
@@ -126,7 +131,7 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
     procs = []
     for k in todo:
         out = k.library_path()
-        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
         procs.append((k, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

@@ -19,10 +19,16 @@ rank holds ``[E/ep, H, F/tp]`` of every expert weight
   ops/moe.py does, then ONE all-reduce over ``("expert", "model")``
   merges the expert contributions and the TP partial sums.
 
+The mesh's ``data`` axis splits the tokens, as the reference's
+``in_specs`` do: when ``dp`` divides the batch each rank takes its data
+coordinate's ``B/dp`` rows (``sharding.data_sharding``), runs the body on
+them, and after the expert all-reduce one all-gather over ``data``
+restores the batch in rank order. An odd batch is replicated: every data
+rank runs every token, as in the reference.
+
 Under sp or pp the reference falls back to XLA's own partitioning of
 the plain MoE; the port runs this same body there (it computes the same
-function). The mesh's ``data`` axis is refused by the runner, so tokens
-are replicated across ranks here.
+function).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import sharding
 from . import moe
 from .grouped_matmul import grouped_matmul
 
@@ -50,8 +57,12 @@ def moe_mlp_ep(
     bias_up: Optional[torch.Tensor] = None,    # [E/ep, F/tp]
     bias_down: Optional[torch.Tensor] = None,  # [E/ep, H]
 ) -> torch.Tensor:
-    B, T, H = x.shape
     E = router.shape[-1]
+    dp = int(mesh.shape.get("data", 1))
+    split = dp > 1 and x.shape[0] % dp == 0
+    if split:   # this data rank's rows; otherwise every rank runs them all
+        x = x[sharding.spec_slices(sharding.data_sharding(mesh), x.shape, mesh)]
+    B, T, H = x.shape
     ep = int(mesh.shape.get("expert", 1))
     tp = int(mesh.shape.get("model", 1))
     if E % max(ep, 1):
@@ -100,4 +111,5 @@ def moe_mlp_ep(
     group = mesh.group("expert", "model")
     if group is not None:
         group.all_reduce(out)
-    return out.reshape(B, T, H)
+    out = out.reshape(B, T, H)
+    return mesh.group("data").all_gather(out, 0) if split else out

@@ -9,8 +9,11 @@ Port of ``sutro_tpu/parallel/mesh.py``. The axes are the reference's,
   (ops/moe_ep.py), one all-reduce over ``("expert", "model")``;
 - ``seq`` (SP): ring attention over the prompt (ops/ring_attention.py);
 - ``pipe`` (PP): stages of ``L/pp`` layers (parallel/pipeline.py);
-- ``data`` (DP), outermost: rows split over ranks (not ported inside a
-  mesh; engine-level data parallelism is engine/dphost.py).
+- ``data`` (DP), outermost: parameters and the page pool replicated
+  over it, as in the reference; the MoE layers split their tokens over
+  it when the batch divides (ops/moe_ep.py), one all-gather over
+  ``data`` after the expert all-reduce. Engine-level data parallelism,
+  one engine a rank, is engine/dphost.py.
 
 Ranks go onto the grid the way the reference places devices,
 ``np.array(devices).reshape(dp, pp, sp, ep, tp)``, so rank ``r``'s
@@ -18,7 +21,8 @@ coordinates are ``np.unravel_index(r, (dp, pp, sp, ep, tp))``.
 
 XLA inserts the reference's collectives from sharding annotations; the
 port calls them itself, through :class:`Group`: each rank builds one
-process group per axis of size > 1, one over ``("expert", "model")``,
+process group per axis of size > 1 (``mesh.group("data")`` is its data
+group), one over ``("expert", "model")``,
 and one over the world, plus a gloo group over the world for the
 control channel (parallel/ranks.py). The groups are c10d process-group
 objects built directly on a store, not the process-global default
@@ -55,7 +59,7 @@ import torch.distributed as dist
 
 AXES = ("data", "pipe", "seq", "expert", "model")
 # the groups each rank builds, in this order on every rank
-GROUPS = (("pipe",), ("seq",), ("expert",), ("model",), ("expert", "model"), AXES)
+GROUPS = (("data",), ("pipe",), ("seq",), ("expert",), ("model",), ("expert", "model"), AXES)
 DEFAULT_TIMEOUT_S = 300.0
 
 

@@ -227,9 +227,12 @@ class RankPool:
                 self.fail(e)
             err = out = None
             try:
+                # the lockstep entry holds the lock for its whole call:
+                # one entry in flight, its broadcast, body and settle
+                # graftlint: disable=lock-callback
                 out = fn()
-            except Exception as e:
-                err = e
+            except Exception as e:  # graftlint: disable=silent-except
+                err = e   # settled with the workers, then re-raised
             try:
                 same = settle(mesh, err)
             except RuntimeError as e:   # a worker is gone or hung
@@ -277,8 +280,8 @@ def serve(runner) -> None:
         with runner._entry_scope():
             try:
                 getattr(type(runner), name).__wrapped__(runner, *args, **kwargs)
-            except Exception as e:
-                err = e
+            except Exception as e:  # graftlint: disable=silent-except
+                err = e   # settled with rank 0, which re-raises it
         if not settle(mesh, err):
             raise err or RankFailure("another rank's call raised")
 

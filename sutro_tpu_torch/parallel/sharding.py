@@ -12,7 +12,10 @@ for leaf (Megatron TP over ``model``, experts over ``expert``):
 - embed replicated; lm_head split over the vocabulary (logits gathered
   before sampling);
 - KV pages split on the fused ``KVH*Dh`` axis over ``model`` in
-  whole-KV-head blocks, matching the heads.
+  whole-KV-head blocks, matching the heads;
+- no rule names ``data``: every data rank holds the same blocks and the
+  same pool; only the MoE layers' tokens split over it
+  (:func:`data_sharding`, ops/moe_ep.py).
 
 A spec is a tuple of mesh-axis names or None per dimension, the
 reference's ``PartitionSpec`` as a tuple. The reference hands the specs
@@ -148,7 +151,7 @@ def cache_shardings(mesh, kv_heads: Optional[int] = None) -> Spec:
 
 
 def data_sharding(mesh=None) -> Spec:
-    """Batch rows over ``data``."""
+    """Batch rows over ``data`` (ops/moe_ep.py cuts its tokens by it)."""
     return ("data",)
 
 

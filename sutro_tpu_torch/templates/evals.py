@@ -264,7 +264,7 @@ def elo_fit(
         if isinstance(ranking, str):
             try:
                 ranking = json.loads(ranking)
-            except Exception:
+            except ValueError:   # not JSON: the row gives no ranking
                 continue
         groups: List[List[str]] = []
         for item in ranking:

@@ -171,6 +171,22 @@ def pipeline_body(rank, cases, out_dir) -> dict:
     return got
 
 
+def resident_shapes(runner) -> dict:
+    """An ``on_ranks`` body: the shapes of this rank's expert, router and
+    embedding blocks and of its K pool."""
+    layers = runner.params["layers"]
+    out = {k: tuple(layers[k].shape) for k in ("we_gate", "we_down", "router") if k in layers}
+    out["embed"] = tuple(runner.params["embed"].shape)
+    out["pool"] = tuple(runner.cache.k_pages.shape)
+    return out
+
+
+def resident_sums(runner) -> dict:
+    """An ``on_ranks`` body: a float64 sum of each of this rank's layer
+    blocks."""
+    return {k: float(v.double().sum()) for k, v in runner.params["layers"].items()}
+
+
 def raise_alike(runner):
     """An ``on_ranks`` body that raises the same error on every rank."""
     raise ValueError("every rank refuses alike")

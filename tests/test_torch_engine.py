@@ -148,14 +148,16 @@ def test_runner_requires_cuda_by_default(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [("tp", 2), ("ep", 2), ("pp", 2)])
 def test_runner_refuses_unported_options(shared_params, field, value):
-    """Meshes run (tests/test_torch_mesh_engine.py); what stays unported
-    is the mesh's data axis beside them, which raises before any rank
-    process starts."""
+    """Every mesh axis is ported, the data axis beside the others too
+    (tests/test_torch_mesh_engine.py runs dp=2 and dp=2 x ep=2); what the
+    runner refuses, before any rank process starts, is what the
+    reference's ``resolved_mesh`` refuses: more ranks than devices."""
     _, tparams = shared_params
-    with pytest.raises(NotImplementedError, match="data axis"):
-        t_runner.ModelRunner(
-            MCFG, EngineConfig(**{**ENGINE, field: value, "dp": 2}), tparams, device="cpu"
-        )
+    ecfg = EngineConfig(**{**ENGINE, field: value, "dp": 2})
+    assert ecfg.resolved_mesh(4) == (2, *(value if f == field else 1
+                                          for f in ("pp", "sp", "ep", "tp")))
+    with pytest.raises(ValueError, match="exceeds 2 devices"):
+        t_runner.ModelRunner(MCFG, ecfg, tparams, device=["cpu"] * 2)
 
 
 def test_pages_round_trip(shared_params):

@@ -9,8 +9,9 @@
   ``jax.device_put(params, param_shardings(...))`` on the 8 CPU devices
   of ``tests/conftest.py``; the pipeline's specs equal
   ``pp_param_shardings``.
-- ``ops/moe_ep.py`` on (dp, ep, tp) = (1,2,1), (1,2,2), (1,4,1), with and
-  without biases, and an odd batch: every rank's output equals JAX's
+- ``ops/moe_ep.py`` on (dp, ep, tp) = (1,2,1), (1,2,2), (1,4,1), (2,2,2),
+  with and without biases, and an odd batch at (1,2,2) and (2,2,2) (the
+  tokens then replicated over ``data``): every rank's output equals JAX's
   single-device MoE (the JAX package runs its own ``moe_mlp_ep`` only in
   slow-marked tests), float32, atol = rtol = 1e-5.
 - ``ops/ring_attention.py`` on sp in {2, 4} x tp in {1, 2}, with a
@@ -206,7 +207,7 @@ def _moe_case(rng, B, T, with_bias, H=16, F=32, E=4):
 def test_moe_ep_equals_the_jax_moe(tmp_path):
     rng = np.random.default_rng(3)
     cases, want = [], {}
-    for dp, ep, tp in [(1, 2, 1), (1, 2, 2), (1, 4, 1)]:
+    for dp, ep, tp in [(1, 2, 1), (1, 2, 2), (1, 4, 1), (2, 2, 2)]:
         for with_bias in (False, True):
             a, kw = _moe_case(rng, 2, 3, with_bias)
             name = f"{dp}{ep}{tp}{'b' if with_bias else ''}"
@@ -217,11 +218,12 @@ def test_moe_ep_equals_the_jax_moe(tmp_path):
             want[name] = np.asarray(jax_moe(
                 a["x"], a["router"], a["we_gate"], a["we_up"], a["we_down"], method="dense",
                 **kw, **jb))
-    a, kw = _moe_case(rng, 3, 2, False, H=8, F=16)    # an odd batch
-    cases.append(("odd", (1, 2, 2), a, kw))
-    want["odd"] = np.asarray(jax_moe(a["x"], a["router"], a["we_gate"], a["we_up"],
-                                     a["we_down"], method="dense", **kw))
-    got = mesh_ranks.spawn(4, mesh_ranks.moe_body, cases, tmp_path)
+    for name, shape in (("odd", (1, 2, 2)), ("odd222", (2, 2, 2))):   # an odd batch
+        a, kw = _moe_case(rng, 3, 2, False, H=8, F=16)
+        cases.append((name, shape, a, kw))
+        want[name] = np.asarray(jax_moe(a["x"], a["router"], a["we_gate"], a["we_up"],
+                                        a["we_down"], method="dense", **kw))
+    got = mesh_ranks.spawn(8, mesh_ranks.moe_body, cases, tmp_path)
     for name, (dp, ep, tp), a, _ in cases:
         E, _, F = a["we_gate"].shape
         for r in range(dp * ep * tp):

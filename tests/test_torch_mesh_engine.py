@@ -13,7 +13,9 @@ identical, on ``tiny-dense``, ``tiny-moe`` and ``tiny-oss``, under
 - (ep=2, tp=2), also with the shared prefix;
 - sp=2 (ring prefill) and pp=2 (GPipe prefill, stage-by-stage decode);
 - int8 KV pages at tp=2 (the per-token scales MAX-reduced over
-  ``model``).
+  ``model``);
+- dp=2 and (dp=2, ep=2): weights and pool replicated over ``data``, the
+  MoE tokens split over it when the batch divides.
 
 Every rank's sampled tokens must agree in every call. Also: a
 ``LocalEngine`` job at tp=2 (each rank loading its block of an HF
@@ -42,6 +44,7 @@ from sutro_tpu_torch.engine import scheduler as t_sched
 from sutro_tpu_torch.engine.config import EngineConfig
 from sutro_tpu_torch.engine.weights import params_from_numpy
 from sutro_tpu_torch.parallel.ranks import RankFailure
+from tests import mesh_ranks
 from tests.test_torch_weights_loader import write_hf_checkpoint
 
 torch.set_num_threads(1)   # every rank inherits it (parallel/ranks.py)
@@ -57,6 +60,8 @@ MESHES = {
     "sp2": (dict(sp=2), 0),
     "pp2": (dict(pp=2), 0),
     "int8kv_tp2": (dict(tp=2, kv_quantize="int8"), 0),
+    "dp2": (dict(dp=2), 0),
+    "dp2_ep2": (dict(dp=2, ep=2, tp=1), 0),
 }
 _JAX = {}
 
@@ -110,7 +115,7 @@ def test_greedy_on_a_mesh_matches_the_jax_engine(model, mesh):
     jparams, tparams = _params(model)
     want = _jax_results(model, jparams, shared, axes.get("kv_quantize"),
                         axes.get("prefix_split", False))
-    world = int(np.prod([axes.get(a, 1) for a in ("tp", "ep", "sp", "pp")]))
+    world = int(np.prod([axes.get(a, 1) for a in ("dp", "tp", "ep", "sp", "pp")]))
     runner = t_runner.ModelRunner(
         MODEL_CONFIGS[model], EngineConfig(**ENGINE, **axes), tparams,
         device=["cpu"] * world,
@@ -119,6 +124,7 @@ def test_greedy_on_a_mesh_matches_the_jax_engine(model, mesh):
         assert runner.mesh.size == world and runner.sp == axes.get("sp", 1)
         got = _run(t_sched, runner, shared)
         report = runner.mesh_report()
+        resident = runner.on_ranks(mesh_ranks.resident_shapes)
     finally:
         runner.close()
     assert sorted(got) == sorted(want)
@@ -128,6 +134,70 @@ def test_greedy_on_a_mesh_matches_the_jax_engine(model, mesh):
     assert len(report) == world
     assert all(r["token_checks"] > 0 and r["token_mismatches"] == 0 for r in report)
     assert all(r["collectives"] > 0 for r in report)
+    cfg = MODEL_CONFIGS[model]
+    tp, ep = axes.get("tp", 1), axes.get("ep", 1)
+    for r in resident:   # data ranks hold the same blocks and the whole pool
+        assert r["pool"][-1] == cfg.num_kv_heads // tp * cfg.head_dim
+        if cfg.moe_experts:
+            E, F = cfg.moe_experts, cfg.moe_intermediate_size
+            assert r["we_gate"][1] * r["we_gate"][-1] * ep * tp == E * F, (mesh, r)
+
+
+def test_data_ranks_hold_the_expert_blocks_and_the_whole_pool():
+    """At (dp, ep, tp) = (2, 2, 2) each of the 8 ranks holds 1/(ep*tp) of
+    every expert weight, the replicated rest whole, and the pool at
+    ``KVH/tp*Dh``; the two data ranks of a block hold the same bits."""
+    cfg = MODEL_CONFIGS["tiny-moe"]
+    _, tparams = _params("tiny-moe")
+    runner = t_runner.ModelRunner(
+        cfg, EngineConfig(**ENGINE, dp=2, ep=2, tp=2), tparams, device=["cpu"] * 8,
+    )
+    try:
+        got = runner.on_ranks(mesh_ranks.resident_shapes)
+        sums = runner.on_ranks(mesh_ranks.resident_sums)
+        coords = [runner.mesh.coords(r) for r in range(8)]
+    finally:
+        runner.close()
+    L, E, H = cfg.num_layers, cfg.moe_experts, cfg.hidden_size
+    F = cfg.moe_intermediate_size
+    pages = 1 + ENGINE["decode_batch_size"] * ENGINE["max_pages_per_seq"]
+    for r in got:
+        assert r["we_gate"] == (L, E // 2, H, F // 2)
+        assert r["we_down"] == (L, E // 2, F // 2, H)
+        assert r["router"] == (L, H, E) and r["embed"] == (cfg.vocab_size, H)
+        assert r["pool"] == (L, pages, ENGINE["kv_page_size"],
+                             cfg.num_kv_heads // 2 * cfg.head_dim)
+    for r, c in enumerate(coords):
+        twin = [q for q, d in enumerate(coords)
+                if d["data"] != c["data"] and (d["expert"], d["model"]) == (c["expert"], c["model"])]
+        assert len(twin) == 1 and sums[twin[0]] == sums[r]
+    assert len({s["we_gate"] for s in sums}) == 4
+
+
+def test_per_chip_rates_count_the_mesh_ranks(tmp_path, monkeypatch):
+    """A job on a tp=2 mesh reports ``tokens_per_second_per_chip`` as its
+    total rate over the mesh's 2 ranks (the reference divides by
+    ``jax.device_count()``, its mesh's devices)."""
+    write_hf_checkpoint(MODEL_CONFIGS["tiny-dense"], 8, tmp_path / "weights" / "tiny-dense")
+    monkeypatch.setenv("SUTRO_MONITOR", "0")
+    monkeypatch.setenv("SUTRO_HOME", str(tmp_path / "home"))
+    cfg = dict(ENGINE, weights_dir=str(tmp_path / "weights"), prefix_store=False, tp=2)
+    eng = api.LocalEngine(EngineConfig(**cfg), device=["cpu", "cpu"])
+    try:
+        jid = eng.submit_batch_inference(
+            {"model": "tiny-dense", "inputs": ["hello", "a row", "x"],
+             "sampling_params": {"temperature": 0.0, "max_new_tokens": 12}})
+        deadline = time.monotonic() + 120
+        while eng.job_status(jid) not in ("SUCCEEDED", "FAILED", "CANCELLED"):
+            assert time.monotonic() < deadline, eng.job_status(jid)
+            time.sleep(0.02)
+        assert eng.job_status(jid) == "SUCCEEDED", eng.get_job(jid)
+        m = dict(eng.metrics.job(jid).latest_tokens)
+    finally:
+        assert eng.close(timeout=30)
+    assert m["total_tokens_processed_per_second"] > 0
+    assert m["tokens_per_second_per_chip"] == pytest.approx(
+        m["total_tokens_processed_per_second"] / 2)
 
 
 def test_a_local_engine_job_at_tp2(tmp_path, monkeypatch):
@@ -194,7 +264,6 @@ def test_refusals_faults_and_alike_errors_leave_the_mesh_up():
     decodes and commits. Ranks that raise different errors are a rank
     failure."""
     from sutro_tpu_torch.engine import faults
-    from tests import mesh_ranks
 
     _, tparams = _params("tiny-dense")
     runner = t_runner.ModelRunner(
@@ -263,8 +332,8 @@ def test_smoke_serve11_runs_at_a_tiny_size(monkeypatch, tmp_path):
     """``chip_smoke.serve_mesh`` end to end on ``tiny-moe`` over two CPU
     ranks: its reference from a single-device runner
     (``mesh_reference``), its checks (the decode step over the pages the
-    mesh wrote among them), the job API on the mesh and the ep, sp and pp
-    phases."""
+    mesh wrote among them), the job API on the mesh and the ep, sp, pp
+    and dp_ep phases (four ranks, an odd batch)."""
     import chip_smoke
 
     monkeypatch.setenv("SUTRO_MONITOR", "0")
@@ -295,8 +364,12 @@ def test_smoke_serve11_runs_at_a_tiny_size(monkeypatch, tmp_path):
     for name, ph in out["phases"].items():
         assert ph["logits_rel_l2"] < chip_smoke.REL_L2 and ph["token_mismatches"] == 0, name
     assert out["phases"]["sp"]["tokens"] == 64
+    dp_ep = out["phases"]["dp_ep"]
+    assert len(dp_ep["launches_by_rank"]) == 4 and dp_ep["odd_rows"] == 3
+    assert all(c > 0 for c in dp_ep["window_collectives"])
     summary = chip_smoke.mesh_summary(out)
-    assert set(summary["phases_rel_l2"]) == {"ep", "sp", "pp"}
+    assert set(summary["phases_rel_l2"]) == {"ep", "sp", "pp", "dp_ep"}
+    assert summary["dp_ep_odd_rel_l2"] < chip_smoke.REL_L2
 
 
 TORCHRUN_SCRIPT = '''
