@@ -1777,11 +1777,19 @@ def mixed_requests(prompts, n_new: int = 64):
     return requests
 
 
+def decode_seconds(timer) -> float:
+    """Host seconds of a timer summary's decode calls: the calls and, on
+    the pipelined path, the fetches of their windows."""
+    if "decode" not in timer:
+        return float("nan")
+    return sum(timer[k]["total_s"] for k in ("decode", "decode_fetch") if k in timer)
+
+
 def serve_summary(prompts, results, launches, calls, timer, wall, rel) -> dict:
     n_prompt = int(sum(len(p) for p in prompts))
     n_gen = sum(len(r.token_ids) for r in results.values())
     pre_s = timer.get("prefill", {}).get("total_s", float("nan"))
-    dec_s = timer.get("decode", {}).get("total_s", float("nan"))
+    dec_s = decode_seconds(timer)
     return dict(rows=len(results), prompt_tokens=n_prompt, generated_tokens=n_gen,
                 wall_s=wall, prefill_s=pre_s, decode_s=dec_s, decode_calls=calls,
                 prefill_tok_s=n_prompt / pre_s, decode_tok_s=n_gen / dec_s,
@@ -2204,7 +2212,7 @@ def serve_constrained(torch, runner, kernels, ngram_kernels, card: str,
         mask_host_ms=clock.ms, mask_host_calls=clock.calls,
         masks_cached={name: len(f.masks._cache) for name, f in factories.items()},
         ff_forced=forced, decode_tok_s_unforced=(out["generated_tokens"] - forced)
-        / timer["decode"]["total_s"],
+        / decode_seconds(timer),
         window_tokens_per_row=committed["tokens"] / max(committed["row_windows"], 1),
         rows_by_kind=counts,
         finish_reasons={k: sum(r.finish_reason == k for r in results.values())
@@ -2674,9 +2682,9 @@ def serve_facade(torch, runners: list, kernels, absent, card: str, home: Path,
     # the records hold the session's times, not a job's: rates are the
     # session's (every job's tokens over them)
     out["session"] = {"prefill_s": last["prefill"]["total_s"],
-                      "decode_s": last["decode"]["total_s"],
+                      "decode_s": decode_seconds(last),
                       "prompt_tok_s": n_in / last["prefill"]["total_s"],
-                      "decode_tok_s": n_gen / last["decode"]["total_s"],
+                      "decode_tok_s": n_gen / decode_seconds(last),
                       "decode_calls": last["decode"]["count"]}
     runner5 = engine._runner_cache[mcfg.name][0]
     got = leaf_checksums(torch, runner5.params)
@@ -3769,7 +3777,7 @@ def serve_graphs(torch, kernels, absent, card: str, *, model="gpt-oss-20b", devi
         "graph_perf": graph_perf, "prefix_saved_tokens": saved,
         # over the session's device calls; prompt tokens as billed (each
         # row's shared system prompt counted)
-        "decode_tok_s": rec["output_tokens"] / graph_perf["decode"]["total_s"],
+        "decode_tok_s": rec["output_tokens"] / decode_seconds(graph_perf),
         "prefill_tok_s": rec["input_tokens"] / graph_perf["prefill"]["total_s"],
         "stage_updates": len(stage_updates),
         "judge_rows_valid": len(judge_out), "elo": [json.loads(x) for x in sink],
@@ -5659,7 +5667,7 @@ def _mesh_job(torch, kernels, card, ref, mcfg, fields, devices, n_rows, n_new, j
         timer = batcher.timer.summary()
         out.update(
             rows=n_rows, generated_tokens=n_gen, wall_s=wall,
-            decode_tok_s=n_gen / timer["decode"]["total_s"], decode_calls=calls,
+            decode_tok_s=n_gen / decode_seconds(timer), decode_calls=calls,
             launches={name: sum(c[name] for c in by_rank) for name in by_rank[0]},
             launches_by_rank=by_rank,
             token_equal_to_serve2=f"{len(equal)}/{len(ref['tokens'])}",

@@ -302,7 +302,17 @@ class LocalEngine:
 
     def submit_batch_inference(self, payload: Dict[str, Any]) -> str:
         """POST /batch-inference equivalent. Returns job_id (for dry runs the
-        job completes with a cost_estimate in its record)."""
+        job completes with a cost_estimate in its record). A ``submit``
+        span times the whole call."""
+        t0 = time.monotonic()
+        job_id = self._submit_batch_inference(payload)
+        if telemetry.ENABLED:
+            telemetry.RECORDER.record(
+                "submit", job_id, t0, time.monotonic() - t0, None
+            )
+        return job_id
+
+    def _submit_batch_inference(self, payload: Dict[str, Any]) -> str:
         model = payload.get("model", "qwen-3-4b")
         engine_key, mcfg, meta = resolve_model(model)
         inputs = payload["inputs"]

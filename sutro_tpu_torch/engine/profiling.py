@@ -140,34 +140,54 @@ def job_trace(
                 logger.warning("device trace rename failed", exc_info=True)
 
 
+#: the scheduler's phases that enqueue device work: with a clock, each
+#: call of one gets a pair of device events (a decode_fetch only waits)
+CLOCKED_PHASES = ("prefill", "admit_sample", "decode")
+
+
 class StepTimer:
     """Wall-clock step latencies by phase ("prefill" / "decode").
 
     ``sink`` (optional) forwards every sample as ``sink(phase, t0,
-    seconds)`` the moment it lands — the telemetry layer's single tap
-    into ALL device-dispatch phases (scheduler sets it to a span/
+    seconds, pair)`` the moment it lands — the telemetry layer's single
+    tap into ALL device-dispatch phases (scheduler sets it to a span/
     histogram recorder when telemetry is enabled; None costs one
-    attribute load per sample)."""
+    attribute load per sample).
 
-    def __init__(self, sink: Optional[Any] = None) -> None:
+    ``clock`` (optional, a ``telemetry.devicetime.DeviceClock``)
+    brackets each call of a ``CLOCKED_PHASES`` phase with a pair of
+    device events; ``pair`` is that call's pair, to settle on its span
+    (None where there is none). Every sample then resolves the pairs
+    whose events have completed."""
+
+    def __init__(
+        self, sink: Optional[Any] = None, clock: Optional[Any] = None,
+    ) -> None:
         self._samples: Dict[str, List[float]] = {}
         self.sink = sink
+        self.clock = clock
 
     @contextlib.contextmanager
     def time(self, phase: str) -> Iterator[None]:
+        clock = self.clock if phase in CLOCKED_PHASES else None
         t0 = time.monotonic()
+        pair = clock.open() if clock is not None else None
         try:
             yield
         finally:
+            if clock is not None:
+                clock.close(pair)
             dt = time.monotonic() - t0
             self._samples.setdefault(phase, []).append(dt)
             if self.sink is not None:
-                self.sink(phase, t0, dt)
+                self.sink(phase, t0, dt, pair)
+            if self.clock is not None:
+                self.clock.poll()
 
     def add(self, phase: str, seconds: float) -> None:
         self._samples.setdefault(phase, []).append(seconds)
         if self.sink is not None:
-            self.sink(phase, time.monotonic() - seconds, seconds)
+            self.sink(phase, time.monotonic() - seconds, seconds, None)
 
     def summary(self) -> Dict[str, Dict[str, Any]]:
         out: Dict[str, Dict[str, Any]] = {}

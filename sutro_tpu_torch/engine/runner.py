@@ -84,6 +84,7 @@ from ..ops.sampling import (
 from ..parallel import sharding
 from ..parallel.mesh import make_mesh, mesh_timeout, shared_card_fraction
 from ..parallel.ranks import RankPool, entry
+from ..telemetry import devicetime
 from . import faults
 from .config import EngineConfig
 from .kvcache import alloc_cache, write_kv
@@ -165,6 +166,11 @@ class ModelRunner:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"ModelRunner: unsupported device {self.device}")
         set_matmul_precision()
+        # the source of the scheduler's device timing: events on this
+        # device's stream (rank 0's on a mesh); none on the CPU
+        self.device_events = (
+            devicetime.CudaEvents(self.device) if self.device.type == "cuda" else None
+        )
         quantize = ecfg.quantize == "int8"
         self.dtype = getattr(torch, ecfg.param_dtype)
         mesh = self.mesh

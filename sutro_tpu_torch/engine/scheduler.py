@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import itertools
 import logging
 import time
 from typing import Any, Callable, Dict, List, Optional, Protocol, Tuple
@@ -45,12 +46,19 @@ from ..ops.sampling import cumulative_logprob, sample as device_sample, split_ke
 
 # StepTimer phase -> telemetry stage (OBSERVABILITY.md span schema):
 # the timer wraps DEVICE dispatches, so its phases map onto the
-# device-side stages of the flight-recorder timeline
+# device-side stages of the flight-recorder timeline; decode_fetch is
+# the pipelined window's wait for its results, apart from its dispatch
 _TEL_STAGE = {
     "prefill": "prefill",
     "decode": "decode_window",
+    "decode_fetch": "decode_fetch",
     "admit_sample": "admit",
 }
+
+# pipelined decode windows, numbered across the process: a window's
+# decode_window (dispatch) and decode_fetch spans share its number
+# (attrs "win"), unique across batchers, sessions and ranks' threads
+_WINDOWS = itertools.count(1)
 
 
 def _admit_sample(
@@ -561,20 +569,9 @@ class ContinuousBatcher:
         # Double-buffered admission prep: a background thread builds
         # the NEXT admission group's lazy constraints while the device
         # runs the current window, so FSM instantiation leaves the
-        # critical path. prep_overlap_s / prep_inline_s split the prep
-        # cost into hidden-behind-device vs paid-inline for the host
-        # overhead profile.
+        # critical path.
         self._prep_thread: Optional[Any] = None
         self._prep_q: Optional[Any] = None
-        self.prep_overlap_s = 0.0
-        self.prep_inline_s = 0.0
-        self.prep_rows_overlapped = 0
-        import threading as _threading
-
-        # guards the overlap counters: _prep_stop joins with a timeout,
-        # so a wedged worker can briefly coexist with its replacement —
-        # two threads may then bump these counters concurrently
-        self._prep_lock = _threading.Lock()
         from .profiling import StepTimer
 
         # telemetry latch (one decision per batcher, zero per-step cost
@@ -592,11 +589,19 @@ class ContinuousBatcher:
         # the decode/prefill loops stash {stage: {batch, steps, ...}}
         # here right before dispatch; the sink folds it into the span
         self._tel_attrs: Dict[str, Dict[str, Any]] = {}
+        # device time of the timed calls (CUDA events; telemetry on and
+        # a runner with an event source only — none on the CPU)
+        events = getattr(runner, "device_events", None)
+        clock = None
+        if self._tel_on and events is not None:
+            from ..telemetry.devicetime import DeviceClock
+
+            clock = DeviceClock(events)
         self.timer = StepTimer(
-            sink=self._tel_sink if self._tel_on else None
+            sink=self._tel_sink if self._tel_on else None, clock=clock,
         )
 
-    def _tel_sink(self, phase: str, t0: float, dt: float) -> None:
+    def _tel_sink(self, phase: str, t0: float, dt: float, pair=None) -> None:
         stage = _TEL_STAGE.get(phase, phase)
         # stage exemplar: point the aggregate histogram at one live
         # request's trace so a slow-bucket sample is resolvable
@@ -606,13 +611,32 @@ class ContinuousBatcher:
         )
         extra = self._tel_attrs.get(stage)
         attrs = None
-        if self._tel_jobs or extra:
+        if self._tel_jobs or extra or pair is not None:
             attrs = dict(extra or ())
             if self._tel_jobs:
                 attrs["jobs"] = self._tel_jobs
+        if pair is not None:
+            # device_s / gap_s land in this span's attrs once the call's
+            # end event has completed: at once for a call that fetched,
+            # at its fetch for a pipelined window's dispatch
+            self.timer.clock.settle(pair, attrs)
         telemetry.RECORDER.record(stage, None, t0, dt, attrs)
         for tid in self._tel_traces:
             telemetry.TRACES.add(tid, stage, t0, dt, extra)
+
+    @staticmethod
+    def _tel_window(active, past_len, steps: int) -> Dict[str, Any]:
+        """A decode call's span attrs for the doctor's roofline grade:
+        occupancy x fused steps over the call's device seconds is its
+        attempted token rate."""
+        return {
+            "batch": len(active),
+            "steps": steps,
+            "avg_ctx": round(
+                sum(int(past_len[i]) for i in active)
+                / max(len(active), 1), 1,
+            ),
+        }
 
     # ------------------------------------------------------------------
 
@@ -1068,7 +1092,6 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         req.constraint = req.constraint_factory()
         dt = time.perf_counter() - t0
-        self.prep_inline_s += dt
         if self._tel_on:
             telemetry.stage_observe("constraint_compile", dt)
             telemetry.RECORDER.record(
@@ -1094,14 +1117,10 @@ class ContinuousBatcher:
                     # consumes it (worst race: the scheduler admitted
                     # the row mid-build and this FSM is dropped)
                     req.prepped_constraint = req.constraint_factory()
-                    with self._prep_lock:
-                        self.prep_rows_overlapped += 1
             except Exception:
                 logger.exception("admission prep failed; admission "
                                  "will rebuild inline")
             dt = time.perf_counter() - t0
-            with self._prep_lock:
-                self.prep_overlap_s += dt
             if self._tel_on:
                 # overlapped builds hide behind device windows but are
                 # still real work on the timeline
@@ -1475,6 +1494,10 @@ class ContinuousBatcher:
                 spec_riders.add(i)
                 drafts[i, : len(d)] = d
                 dlens[i] = len(d)
+        if self._tel_on:
+            self._tel_attrs["decode_window"] = self._tel_window(
+                active, past_len, 1
+            )
         with self.timer.time("decode"):
             ct, cl, pt, pl = self.runner.verify_candidates(
                 np.asarray(last, np.int32), drafts, dlens,
@@ -1675,6 +1698,10 @@ class ContinuousBatcher:
             drafts[i, : len(d)] = d
             dlens[i] = len(d)
         d0, a0 = self.spec_drafted, self.spec_accepted
+        if self._tel_on:
+            self._tel_attrs["decode_window"] = self._tel_window(
+                active, past_len, 1
+            )
         with self.timer.time("decode"):
             toks_v, logp_v = self.runner.verify_greedy(
                 np.asarray(last, np.int32), drafts, dlens,
@@ -2156,7 +2183,7 @@ class ContinuousBatcher:
         but not yet processed, per slot — only windows whose (slot, gen)
         snapshot still matches count."""
         proj = np.zeros((self.B,), np.int32)
-        for _, _, w_active, w_gens, wK in pipe:
+        for _, _, w_active, w_gens, wK, _ in pipe:
             for idx, i in enumerate(w_active):
                 if self._gen[i] == w_gens[idx]:
                     proj[i] += wK
@@ -2185,7 +2212,7 @@ class ContinuousBatcher:
 
     def _dispatch_pipelined(
         self, pipe, active, last, past, table, temp, top_p, top_k,
-        K: int,
+        K: int, tel: Optional[Dict[str, Any]] = None,
     ) -> None:
         """Dispatch one fused window WITHOUT waiting for in-flight ones.
 
@@ -2193,9 +2220,10 @@ class ContinuousBatcher:
         tokens chain from the previous window's device-resident sample
         row; slots admitted (or re-admitted) since that dispatch take
         their host-known token via a device-side merge — no host sync
-        anywhere on this path."""
+        anywhere on this path. ``tel``: the window's span attrs
+        (telemetry on), stamped with its number."""
         if pipe:
-            prev_toks, _, p_active, p_gens, _ = pipe[-1]
+            prev_toks, _, p_active, p_gens, _, _ = pipe[-1]
             chained = {
                 i
                 for idx, i in enumerate(p_active)
@@ -2216,11 +2244,15 @@ class ContinuousBatcher:
         else:
             last_arg = last
         self._key, sub = split_key(self._key)
+        win = next(_WINDOWS)
+        if tel is not None:
+            self._tel_attrs["decode_window"] = dict(tel, win=win)
         with self.timer.time("decode"):
             toks_dev, logps_dev = self.runner.decode_multi_async(
                 last_arg, past, table, sub, temp, top_p, K, top_k=top_k,
                 pfx=self._split_pfx(active),
             )
+        self._tel_attrs.pop("decode_window", None)
         self._step += K
         pipe.append(
             (
@@ -2229,6 +2261,7 @@ class ContinuousBatcher:
                 list(active),
                 [self._gen[i] for i in active],
                 K,
+                win,
             )
         )
 
@@ -2244,8 +2277,12 @@ class ContinuousBatcher:
         (round-5 host-overhead profile: the per-token Python loop cost
         ~26 ms per B=128 window, 2× the device window itself); rows with
         any per-token machinery keep the exact per-token loop."""
-        toks_dev, logps_dev, w_active, w_gens, wK = entry
-        with self.timer.time("decode"):
+        toks_dev, logps_dev, w_active, w_gens, wK, win = entry
+        if self._tel_on:
+            self._tel_attrs["decode_fetch"] = {"win": win}
+        # the host waits on the card here; the window's device time
+        # lands on its dispatch span once this wait completes its events
+        with self.timer.time("decode_fetch"):
             toks = _host(toks_dev)
             logps = _host(logps_dev)
         t_acc = time.monotonic() if self._tel_on else 0.0
@@ -3391,15 +3428,10 @@ class ContinuousBatcher:
                     and not self._needs_mask
                 )
                 if pipe_ok or pipe:
-                    if self._tel_on:
-                        self._tel_attrs["decode_window"] = {
-                            "batch": len(active),
-                            "steps": KS,
-                            "avg_ctx": round(
-                                sum(int(past_len[i]) for i in active)
-                                / max(len(active), 1), 1,
-                            ),
-                        }
+                    tel = (
+                        self._tel_window(active, past_len, KS)
+                        if self._tel_on else None
+                    )
                     # a pending spec probe suspends refill so the pipe
                     # drains (one window per iteration) and the probe
                     # above gets its `not pipe` opening
@@ -3412,7 +3444,7 @@ class ContinuousBatcher:
                                 break
                             self._dispatch_pipelined(
                                 pipe, active, last, past_len + proj,
-                                table, temp, top_p, top_k, KS,
+                                table, temp, top_p, top_k, KS, tel,
                             )
                     if pipe:
                         # drain-one: also covers pipe_ok going false
@@ -3472,17 +3504,9 @@ class ContinuousBatcher:
                         K = self.ecfg.decode_multi_step
 
                 if self._tel_on:
-                    # window attribution for the doctor's roofline
-                    # grade: occupancy x fused steps over the span's
-                    # duration is the window's attempted token rate
-                    self._tel_attrs["decode_window"] = {
-                        "batch": len(active),
-                        "steps": K,
-                        "avg_ctx": round(
-                            sum(int(past_len[i]) for i in active)
-                            / max(len(active), 1), 1,
-                        ),
-                    }
+                    self._tel_attrs["decode_window"] = self._tel_window(
+                        active, past_len, K
+                    )
                 self._key, sub = split_key(self._key)
                 # row-seeded sampling needs a batch-independent base key
                 # so a row's stream reproduces regardless of batch
@@ -3534,6 +3558,9 @@ class ContinuousBatcher:
                             )
                         )
                     self._step += K
+                    # the commit below is the same window's second call:
+                    # its span carries no window shape of its own
+                    self._tel_attrs.pop("decode_window", None)
                     t_acc = time.monotonic() if self._tel_on else 0.0
                     accepted = np.zeros((self.B,), np.int32)
                     finished: List[int] = []

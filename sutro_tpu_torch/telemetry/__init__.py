@@ -105,7 +105,8 @@ TRACES = TraceStore(
 STAGE_SECONDS = REGISTRY.histogram(
     "sutro_stage_seconds",
     "Engine stage latency (tokenize, constraint_compile, prefill, "
-    "decode_window, admit, accept, flush, finalize, dp_round, embed)",
+    "decode_window, decode_fetch, admit, accept, flush, finalize, "
+    "dp_round, embed)",
     labels=("stage",),
     unit="seconds",
     max_series=16,
@@ -380,6 +381,8 @@ STAGES = (
     "admit",
     "prefill",
     "decode_window",
+    # a pipelined decode window's fetch: the host waiting on the card
+    "decode_fetch",
     "accept",
     "flush",
     "finalize",
@@ -390,6 +393,8 @@ STAGES = (
     # migration worker and surface as kv_demote queue time only)
     "kv_demote",
     "kv_promote",
+    # LocalEngine.submit_batch_inference, around its whole body
+    "submit",
 )
 
 

@@ -1,6 +1,7 @@
 """Job bottleneck doctor: name WHY a job was slow, with evidence.
 
-A copy of ``sutro_tpu/telemetry/doctor.py``.
+A copy of ``sutro_tpu/telemetry/doctor.py`` that also reads the
+port's device seconds from CUDA events (``device_s``).
 
 Input is the merged per-job telemetry document (``telemetry.job_doc``
 — local flight-recorder timeline plus, for dp coordinator jobs, the
@@ -15,7 +16,8 @@ tests/test_doctor.py):
   ``avg_ctx`` attrs (scheduler) and the job's attrs carry the runner's
   device info, so each window's attempted token rate grades against
   the chip's HBM roofline (engine/roofline.py) and prefill spans grade
-  as MFU;
+  as MFU, over the call's ``device_s`` (CUDA events) where the span
+  has one, else over its duration;
 - **one named verdict** from a fixed taxonomy, most-specific first:
 
   ========================  ============================================
@@ -53,8 +55,12 @@ from ..engine import roofline
 
 DOCTOR_VERSION = 1
 
-#: stages whose duration is device dispatch/fetch (the chip working)
+#: stages whose duration is device dispatch/fetch (the chip working),
+#: where a span carries no ``device_s`` (CUDA events) of its own
 DEVICE_STAGES = ("prefill", "decode_window", "admit", "embed")
+#: the host waiting on the chip (a pipelined window's fetch): neither
+#: device work nor host work
+WAIT_STAGES = ("decode_fetch",)
 #: host-side pipeline stages (the chip idle or overlapped)
 HOST_STAGES = ("tokenize", "constraint_compile", "accept", "flush",
                "finalize", "kv_demote", "kv_promote")
@@ -126,14 +132,35 @@ def _attribution(spans: List[Dict[str, Any]]) -> Dict[str, Any]:
             sum(stages.get(n, {}).get("total_s", 0.0) for n in names), 6
         )
 
-    return {
+    # a document without CUDA events (old dumps, the CPU) keeps the
+    # device stages' totals
+    device_s = _sum(DEVICE_STAGES)
+    if any("device_s" in (s.get("attrs") or {}) for s in spans):
+        device_s = round(sum(_device_seconds(spans)), 6)
+    out = {
         "spans": len(spans),
         "wall_s": round(wall, 6),
-        "device_s": _sum(DEVICE_STAGES),
+        "device_s": device_s,
         "host_s": _sum(HOST_STAGES),
         "io_s": _sum(IO_STAGES),
         "stages": {k: stages[k] for k in sorted(stages)},
     }
+    if any(n in stages for n in WAIT_STAGES):
+        out["wait_s"] = _sum(WAIT_STAGES)
+    return out
+
+
+def _device_seconds(spans: List[Dict[str, Any]]) -> List[float]:
+    """Each span's device seconds: its ``device_s`` where it has one,
+    else a device stage's duration."""
+    out = []
+    for s in spans:
+        a = s.get("attrs") or {}
+        if "device_s" in a:
+            out.append(float(a["device_s"]))
+        elif s.get("name") in DEVICE_STAGES:
+            out.append(float(s.get("dur_s", 0.0)))
+    return out
 
 
 def _median(xs: List[float]) -> float:
@@ -179,7 +206,9 @@ def _grade_roofline(
     mfus: List[float] = []
     for s in spans:
         attrs = s.get("attrs") or {}
-        dur = float(s.get("dur_s", 0.0))
+        # device seconds where CUDA events measured them, else the
+        # span's host duration
+        dur = float(attrs.get("device_s", s.get("dur_s", 0.0)))
         if dur <= 0:
             continue
         if s.get("name") == "decode_window" and attrs.get("batch"):
@@ -245,7 +274,8 @@ REQUEST_BOUND_FRACTION = 0.25
 QUEUE_BOUND_FRACTION = 0.4
 
 #: stages that are the request actually computing (device + host work)
-_REQUEST_COMPUTE = ("prefill", "decode_window", "admit", "accept")
+_REQUEST_COMPUTE = ("prefill", "decode_window", "decode_fetch", "admit",
+                    "accept")
 
 
 def diagnose_request(doc: Dict[str, Any]) -> Dict[str, Any]:

@@ -29,7 +29,8 @@ _LANES = (
     ("prefill", ("prefill", "prefix_hit", "prefix_extend")),
     (
         "decode",
-        ("decode_window", "accept", "preempt_suspend", "resume"),
+        ("decode_window", "decode_fetch", "accept", "preempt_suspend",
+         "resume"),
     ),
     ("stream", ("stream_flush", "first_token", "finish")),
 )

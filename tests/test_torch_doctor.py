@@ -157,6 +157,46 @@ def test_request_verdicts_equal_the_jax_doctor():
         "insufficient_data", got[-1]["verdict"]]
 
 
+def _pipelined_h100(device_s: bool):
+    """Four pipelined windows on an H100: each a short dispatch carrying
+    the window's shape and, where ``device_s``, its device time from CUDA
+    events, and a long fetch."""
+    spans = [_span("prefill", 0.0, 0.3, tokens=600,
+                   **({"device_s": 0.25, "gap_s": 0.0} if device_s else {}))]
+    for w in range(1, 5):
+        t = 0.3 + 0.1 * w
+        dev = {"device_s": 0.05, "gap_s": 0.001} if device_s else {}
+        spans.append(_span("decode_window", t, 0.002, batch=8, steps=4, avg_ctx=128.0,
+                           win=w, **dev))
+        spans.append(_span("decode_fetch", t + 0.002, 0.08, win=w))
+    return {"job_id": "j", "attrs": {"device": _H100},
+            "counters": {"rows_ok": 8, "input_tokens": 1024, "output_tokens": 256},
+            "spans": spans}
+
+
+def test_doctor_grades_each_pipelined_window_once_by_its_device_time():
+    rank0 = doctor.diagnose(_pipelined_h100(True), status="SUCCEEDED")["processes"]["rank0"]
+    rl = rank0["roofline"]
+    bps = roofline.decode_bytes_per_step(
+        param_bytes=_H100["param_bytes"], batch=8, avg_ctx=128.0,
+        num_layers=_H100["num_layers"], kv_heads=_H100["kv_heads"],
+        head_dim=_H100["head_dim"], kv_dtype_bytes=_H100["kv_dtype_bytes"])
+    want = roofline.grade_decode(8 * 4 / 0.05, batch=8, bytes_per_step=bps,
+                                 device_kind=H100_KIND)["pct_hbm_roofline"]
+    assert rl["graded_windows"] == 4 and rl["decode_pct_hbm_median"] == round(want, 1)
+    # device seconds from the events: the windows' and the prefill's, not
+    # the dispatches' enqueue or the fetches' wait; the fetch is waiting
+    assert rank0["device_s"] == pytest.approx(4 * 0.05 + 0.25)
+    assert rank0["wait_s"] == pytest.approx(4 * 0.08)
+    assert rank0["stages"]["decode_fetch"]["count"] == 4
+    # a document without events (old dumps, the CPU) falls back on the
+    # spans' durations: the dispatch is the window's device stage
+    old = doctor.diagnose(_pipelined_h100(False), status="SUCCEEDED")["processes"]["rank0"]
+    assert old["roofline"]["graded_windows"] == 4
+    assert old["device_s"] == pytest.approx(0.3 + 4 * 0.002)
+    assert old["wait_s"] == pytest.approx(4 * 0.08)
+
+
 @pytest.fixture(scope="module")
 def engine(tmp_path_factory):
     mp = pytest.MonkeyPatch()
